@@ -1,0 +1,135 @@
+"""Builds the port's CUDA kernels on first use and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). Libraries land
+in ``allophant_tpu_torch/_build/<hash>/``, where the hash covers the sources and
+the compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is. Nothing here runs at import time: the CPU tests import every
+module of the package on machines without nvcc."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+PACKAGE_ROOT = Path(__file__).resolve().parent.parent
+SOURCE_DIR = PACKAGE_ROOT / "csrc"
+BUILD_ROOT = PACKAGE_ROOT / "_build"
+KERNEL_NAMES = ("oneshot_attention", "frame_encoder")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_C_POINTER = ctypes.c_void_p
+# argtypes of each library's entry point (every pointer and the stream as
+# c_void_p, so ctypes never truncates them to 32-bit ints).
+_SIGNATURES = {
+    "oneshot_attention": (
+        "oneshot_attention_forward",
+        [_C_POINTER] * 5
+        + [ctypes.c_int] * 4
+        + [_C_POINTER, ctypes.c_float, ctypes.c_float, ctypes.c_int, _C_POINTER],
+    ),
+    "frame_encoder": (
+        "frame_encoder_forward",
+        [_C_POINTER] * 6
+        + [ctypes.c_int] * 3
+        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, _C_POINTER],
+    ),
+}
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def _source_hash(names: Sequence[str]) -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(names):
+        digest.update(name.encode())
+        digest.update((SOURCE_DIR / f"{name}.cu").read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def build_directory() -> Path:
+    return BUILD_ROOT / _source_hash(KERNEL_NAMES)
+
+
+def _library_path(name: str) -> Path:
+    return build_directory() / f"lib{name}.so"
+
+
+def _compile(names: Sequence[str]) -> None:
+    """One nvcc process per source, all started together; each writes to a
+    temporary file that is renamed into place only when it compiled."""
+    directory = build_directory()
+    directory.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in names:
+        handle, temporary = tempfile.mkstemp(suffix=".so", dir=directory)
+        os.close(handle)
+        command = [nvcc, *NVCC_FLAGS, "-o", temporary, str(SOURCE_DIR / f"{name}.cu")]
+        process = subprocess.Popen(command, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, temporary, process))
+    failures = []
+    for name, temporary, process in jobs:
+        output, _ = process.communicate()
+        if process.returncode != 0:
+            os.unlink(temporary)
+            failures.append(f"{name}.cu (exit {process.returncode}):\n{output}")
+            continue
+        os.replace(temporary, _library_path(name))
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+
+
+def build_all() -> float:
+    """Builds every kernel library that is missing; returns the seconds spent."""
+    start = time.perf_counter()
+    with _lock:
+        missing = [name for name in KERNEL_NAMES if not _library_path(name).exists()]
+        if missing:
+            _compile(missing)
+    return time.perf_counter() - start
+
+
+def load_kernel(name: str):
+    """The C entry point of kernel ``name`` (building its library if needed),
+    with argtypes and an int restype (the cudaGetLastError() code) declared."""
+    with _lock:
+        function = _loaded.get(name)
+        if function is None:
+            path = _library_path(name)
+            if not path.exists():
+                _compile([name])
+            symbol, argtypes = _SIGNATURES[name]
+            function = getattr(ctypes.CDLL(str(path)), symbol)
+            function.argtypes = argtypes
+            function.restype = ctypes.c_int
+            _loaded[name] = function
+    return function
+
+
+def check_launch(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {status}")
