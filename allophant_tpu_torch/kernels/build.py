@@ -23,27 +23,39 @@ from typing import Dict, Sequence
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_ROOT / "csrc"
 BUILD_ROOT = PACKAGE_ROOT / "_build"
-KERNEL_NAMES = ("oneshot_attention", "frame_encoder")
+KERNEL_NAMES = ("oneshot_attention", "frame_encoder", "beam_search")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _C_POINTER = ctypes.c_void_p
-# argtypes of each library's entry point (every pointer and the stream as
-# c_void_p, so ctypes never truncates them to 32-bit ints).
+# Entry point -> (library, C symbol, argtypes); every pointer and the stream
+# are c_void_p, so ctypes never truncates them to 32-bit ints.
 _SIGNATURES = {
     "oneshot_attention": (
+        "oneshot_attention",
         "oneshot_attention_forward",
         [_C_POINTER] * 5
         + [ctypes.c_int] * 4
         + [_C_POINTER, ctypes.c_float, ctypes.c_float, ctypes.c_int, _C_POINTER],
     ),
     "frame_encoder": (
+        "frame_encoder",
         "frame_encoder_forward",
         [_C_POINTER] * 6
         + [ctypes.c_int] * 3
         + [ctypes.c_longlong, ctypes.c_float, ctypes.c_int, _C_POINTER],
+    ),
+    "beam_search": (
+        "beam_search",
+        "beam_search_forward",
+        [_C_POINTER] * 5 + [ctypes.c_int] * 5 + [_C_POINTER],
+    ),
+    "beam_backtrace": (
+        "beam_search",
+        "beam_backtrace_forward",
+        [_C_POINTER] * 4 + [ctypes.c_int] * 3 + [_C_POINTER],
     ),
 }
 
@@ -114,15 +126,15 @@ def build_all() -> float:
 
 
 def load_kernel(name: str):
-    """The C entry point of kernel ``name`` (building its library if needed),
-    with argtypes and an int restype (the cudaGetLastError() code) declared."""
+    """The C entry point ``name`` (building its library if needed), with
+    argtypes and an int restype (the cudaGetLastError() code) declared."""
     with _lock:
         function = _loaded.get(name)
         if function is None:
-            path = _library_path(name)
+            library, symbol, argtypes = _SIGNATURES[name]
+            path = _library_path(library)
             if not path.exists():
-                _compile([name])
-            symbol, argtypes = _SIGNATURES[name]
+                _compile([library])
             function = getattr(ctypes.CDLL(str(path)), symbol)
             function.argtypes = argtypes
             function.restype = ctypes.c_int

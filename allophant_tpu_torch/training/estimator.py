@@ -1,6 +1,7 @@
 """Estimator, inference side (counterpart of the prediction surface of
 ``allophant_tpu/training/estimator.py``): bucketed ``predict``, the fused greedy
-serving step ``predict_decoded`` and ``map_allophones``.
+serving step ``predict_decoded``, the fused beam serving step
+``predict_beam_decoded``, ``map_allophones`` and ``downsampled_lengths``.
 
 PyTorch runs eagerly, so there is no per-bucket compile cache; the audio is
 still bucketed exactly as the JAX estimator buckets it, because the width of
@@ -17,7 +18,7 @@ from allophant_tpu_torch.data.batch import Batch
 from allophant_tpu_torch.device import resolve_device, set_float32_precision
 from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
-from allophant_tpu_torch.ops.decode import greedy_decode_padded
+from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
 
 #: Serving precision presets: name -> (dtype, head_dtype, f32_matmul_precision).
 #: "float32" is full f32 (TF32 off for matmuls and cuDNN convolutions).
@@ -149,6 +150,37 @@ class Estimator:
             )
             lanes.append(torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
         return torch.stack(lanes).to(torch.uint16), predictions.lengths
+
+    @torch.inference_mode()
+    def predict_beam_decoded(
+        self,
+        batch: Batch,
+        target_feature_indices: Optional[np.ndarray] = None,
+        heads: Tuple[str, ...] = (),
+        beam_width: int = 4,
+        map_allophones: bool = False,
+    ):
+        """Fused beam serving step: returns device tensors ``(collected, scores,
+        lengths)`` where ``collected`` is int16 [H, T, B, K] (the token emitted
+        at step t by beam k of row b for head ``heads[h]``, -1 = none) and
+        ``scores`` is f32 [H, B, K].
+
+        Every head decodes f32 log-probs, since the reported beam scores are
+        not invariant to log_softmax; with ``map_allophones`` the phoneme layer
+        is the allophone map of the phone head's log-probs. Heads of equal
+        class count share one search launch (``beam_search_heads``)."""
+        predictions, language_ids = self._forward(batch, target_feature_indices)
+        outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in predictions.outputs.items()}
+        if map_allophones:
+            outputs[PHONEME_LAYER] = self.model.map_allophones(outputs[PHONE], language_ids)
+        collected, scores = beam_search_heads(
+            [outputs[name] for name in heads], predictions.lengths, beam_width, BLANK_INDEX
+        )
+        return collected, scores, predictions.lengths
+
+    def downsampled_lengths(self, lengths) -> np.ndarray:
+        """CTC frame counts of audio lengths in samples."""
+        return self.model.architecture.downsampled_lengths(np.asarray(lengths))
 
     @torch.inference_mode()
     def map_allophones(self, phone_logits, language_ids, time_major: bool = True) -> torch.Tensor:

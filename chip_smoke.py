@@ -10,11 +10,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      and f32, at the serving shapes and beyond (one-shot attention at
      T = 511, 512, 1536 and 6400 frames with a zero-length and a ragged row),
      with kernel, twin and library times and the roofline bound;
+     Beam kernels: the CTC prefix beam search (K3) and its backtrace against
+     their plain versions, integer-equal, at the serving shapes (B = 8,
+     T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
+     request, a 2400-class inventory, T = 2 and 37, K = 1 and 8, the
+     widest class count (32767) and a blank index of 3;
   4. serve: the full-width flagship (XLS-R 300M + hierarchical head, seeded
      random weights) under the default "mixed" preset answers three requests
      through Estimator.predict_decoded, with the kernel launch counters read
      around each request;
-  5. float32: one 2 s request in "float32" on the card and on the CPU (twins).
+  5. serve beam: the same three requests through
+     Estimator.predict_beam_decoded (all 38 heads, beam width 4), launch
+     counters read around each; the first request's log-probs from the card
+     are searched on the CPU, and the grids must be equal;
+  6. float32: one 2 s request in "float32" on the card and on the CPU (twins),
+     greedy and beam grids equal.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -285,6 +295,150 @@ def phase_attention(serve_lengths, serve_time) -> dict:
     return entry
 
 
+def beam_inputs(batch, time_steps, classes, lengths, seed, scale=2.0):
+    """Seeded log-softmax emissions [B, T, C] f32 and int32 lengths on the card."""
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(batch, time_steps, classes, generator=generator, device="cuda") * scale
+    return torch.log_softmax(logits, dim=-1), torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def valid_steps(lengths, time_steps) -> int:
+    """The (row, step) pairs within the rows' lengths: the steps a search
+    and a backtrace read."""
+    return int(lengths.clamp(0, time_steps).sum().item())
+
+
+def beam_work(batch, time_steps, classes, beams, lengths):
+    """(bytes, operations) of one beam search: the emission rows of valid
+    steps and the lengths read once (a row stops at its length), parents and
+    emitted [T, B, K] int32 over all T and scores written once; per valid
+    step each of the K * C candidates takes one add and one log-add (max,
+    subtract, abs, exp, log1p, add: 7 f32 operations)."""
+    steps = valid_steps(lengths, time_steps)
+    bytes_moved = steps * classes * 4 + batch * 4 + 2 * time_steps * batch * beams * 4 + batch * beams * 4
+    return bytes_moved, steps * beams * classes * 8
+
+
+def check_search(label, got, expected, collected, expected_collected):
+    """Parents, emitted tokens and collected grids integer-equal; scores
+    within a relative 1e-5 (bit-equal expected: the kernel's log-add is
+    PyTorch's, built without fast math). Returns the count of scores that
+    are not bit-equal and the largest relative score difference."""
+    parents, emitted, scores = got
+    want_parents, want_emitted, want_scores = expected
+    check(torch.equal(parents, want_parents), f"{label}: parents differ in {int((parents != want_parents).sum())} cells")
+    check(torch.equal(emitted, want_emitted), f"{label}: emitted tokens differ in {int((emitted != want_emitted).sum())} cells")
+    check(torch.equal(collected, expected_collected), f"{label}: collected grids differ")
+    relative = ((scores - want_scores).abs() / want_scores.abs().clamp_min(1e-30)).max().item()
+    check(relative <= 1e-5, f"{label}: scores differ by a relative {relative}")
+    absolute = (scores - want_scores).abs().max().item() if scores.numel() else 0.0
+    return int((scores != want_scores).sum().item()), relative, absolute
+
+
+def phase_beam_kernels(serve_lengths, serve_time) -> list:
+    """K3 (beam_search) and the backtrace kernel against their plain versions
+    on the card; returns their JSON entries, timed at the two launches a
+    serving request of the first shape makes: the 36 four-class attribute
+    heads stacked as [36·8, 511, 4] and the phone and phoneme heads as
+    [2·8, 511, 40]."""
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+    from allophant_tpu_torch.ops.decode import backtrace_beams_device, beam_search_padded
+
+    serve = list(serve_lengths)
+    cases = [
+        # (label, B, T, C, K, lengths, scale, blank)
+        ("serve C=4", 8, serve_time, 4, 4, serve, 1.0, 0),
+        ("serve C=40", 8, serve_time, 40, 4, serve, 2.0, 0),
+        ("stacked attribute heads", 36 * 8, serve_time, 4, 4, serve * 36, 1.0, 0),
+        ("stacked phone + phoneme", 2 * 8, serve_time, 40, 4, serve * 2, 2.0, 0),
+        ("30 s request", 1, 1535, 40, 4, [1535], 2.0, 0),
+        ("full inventory", 16, 512, 2400, 4, [0, 389] + [512] * 14, 2.0, 0),
+        ("short T=2", 8, 2, 40, 4, [0, 1] + [2] * 6, 2.0, 0),
+        ("short T=37", 8, 37, 40, 4, [0, 5] + [37] * 6, 2.0, 0),
+        ("K=1", 8, serve_time, 40, 1, serve, 2.0, 0),
+        ("K=8", 8, serve_time, 40, 8, serve, 0.5, 0),
+        ("near-uniform merging", 8, serve_time, 40, 4, serve, 0.3, 0),
+        # Wider than the kernel stages in shared memory: read from global memory.
+        ("widest classes", 3, 37, 32767, 4, [0, 23, 37], 2.0, 0),
+        # A blank other than 0: the stay column, the merges that skip it.
+        ("blank 3", 8, serve_time, 40, 4, serve, 0.5, 3),
+    ]
+    # One request's work: both launches of each kernel, summed.
+    totals = dict.fromkeys(("ms", "plain_ms", "bytes", "operations", "backtrace_ms", "backtrace_plain_ms", "backtrace_bytes"), 0.0)
+    search_error = backtrace_error = 0.0
+    for index, (label, batch, time_steps, classes, beams, lengths, scale, blank) in enumerate(cases):
+        emissions, lengths = beam_inputs(batch, time_steps, classes, lengths, 100 + index, scale)
+        got = beam_search_cuda(emissions, lengths, beams, blank)
+        expected = beam_search_padded(emissions, lengths, beams, blank)
+        collected = backtrace_cuda(got[0], got[1], lengths)
+        torch.cuda.synchronize()
+        # The backtrace kernel on the kernel's own backpointers against its
+        # plain version on the same input, then the two whole searches.
+        backtrace_twin = backtrace_beams_device(got[0], got[1], lengths)
+        if collected.numel():
+            backtrace_error = max(backtrace_error, float((collected - backtrace_twin).abs().max().item()))
+        check(torch.equal(collected, backtrace_twin), f"{label}: backtrace differs")
+        expected_collected = backtrace_beams_device(expected[0], expected[1], lengths)
+        not_bit_equal, relative, absolute = check_search(label, got, expected, collected, expected_collected)
+        search_error = max(search_error, absolute)
+        live = int((got[2] > -5e29).sum().item())
+        print(
+            f"kernel beam_search B={batch} T={time_steps} C={classes} K={beams} blank={blank} {label}: parents, emitted and"
+            f" collected integer-equal; scores not bit-equal {not_bit_equal} of {got[2].numel()}"
+            f" (largest relative difference {relative:.3e}, tolerance 1e-5), live slots {live}",
+            flush=True,
+        )
+        if label.startswith("stacked"):
+            search_ms = cuda_ms(lambda: beam_search_cuda(emissions, lengths, beams), 20)
+            search_plain_ms = cuda_ms(lambda: beam_search_padded(emissions, lengths, beams), 1)
+            backtrace_ms = cuda_ms(lambda: backtrace_cuda(got[0], got[1], lengths), 20)
+            backtrace_plain_ms = cuda_ms(lambda: backtrace_beams_device(got[0], got[1], lengths), 2)
+            bytes_moved, operations = beam_work(batch, time_steps, classes, beams, lengths)
+            # The backtrace: parents and emitted read at valid steps, lengths
+            # read once, collected [T, B, K] written once.
+            backtrace_bytes = valid_steps(lengths, time_steps) * beams * 8 + batch * 4 + time_steps * batch * beams * 4
+            for key, value in zip(totals, (search_ms, search_plain_ms, bytes_moved, operations, backtrace_ms, backtrace_plain_ms, backtrace_bytes)):
+                totals[key] += value
+            print(
+                f"time beam_search {label} B={batch} T={time_steps} C={classes} K={beams}: kernel {search_ms:.4f} ms,"
+                f" twin {search_plain_ms:.4f} ms, bound {bound_ms(bytes_moved, operations, 'float32')[0]:.6f} ms;"
+                f" backtrace kernel {backtrace_ms:.4f} ms, twin {backtrace_plain_ms:.4f} ms,"
+                f" bound {bound_ms(backtrace_bytes, 0, 'float32')[0]:.6f} ms",
+                flush=True,
+            )
+    search_bound, search_bound_by = bound_ms(totals["bytes"], totals["operations"], "float32")
+    backtrace_bound, backtrace_bound_by = bound_ms(totals["backtrace_bytes"], 0, "float32")
+    shape = f"per request: [{36 * 8}, {serve_time}, 4] + [{2 * 8}, {serve_time}, 40] f32, K=4"
+    return [
+        {
+            "name": "beam_search",
+            "route": "cuda",
+            "source": "allophant_tpu_torch/csrc/beam_search.cu",
+            "replaces": "allophant_tpu/ops/beam_kernel.py:43",
+            "max_abs_err": search_error,
+            "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"],
+            "bound_ms": search_bound,
+            "bound_by": search_bound_by,
+            "library_ms": None,
+            "shape": shape,
+        },
+        {
+            "name": "beam_backtrace",
+            "route": "cuda",
+            "source": "allophant_tpu_torch/csrc/beam_search.cu",
+            "replaces": "allophant_tpu/ops/decode.py:544",
+            "max_abs_err": backtrace_error,
+            "ms": totals["backtrace_ms"],
+            "plain_ms": totals["backtrace_plain_ms"],
+            "bound_ms": backtrace_bound,
+            "bound_by": backtrace_bound_by,
+            "library_ms": None,
+            "shape": shape,
+        },
+    ]
+
+
 def serving_requests():
     """(name, predict_decoded keyword arguments) of the three serving requests,
     with audio drawn from a fixed seed."""
@@ -332,28 +486,41 @@ def check_grid(grid, lengths, heads, widths):
         check(bool((tokens[~in_count[index]] == 0).all()), f"head {name}: non-zero past the count")
 
 
-def phase_serve(results: dict) -> None:
+def build_serving_flagship():
     from allophant_tpu_torch.demo import build_flagship
-    from allophant_tpu_torch.models.projection import PHONEME_LAYER
-    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
-    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
 
     start = time.perf_counter()
     estimator = build_flagship(seed=0, precision="mixed", device="cuda")
     torch.cuda.synchronize()
     layers = estimator.model.architecture.num_hidden_layers
     print(f"serve: flagship built in {time.perf_counter() - start:.2f} s ({layers} layers, mixed)", flush=True)
-    allophone_phonemes = estimator.model.plan.allophone_shape[2]
+    return estimator
+
+
+def request_log_probs(estimator, name, request):
+    """(batch, keyword arguments, predictions, heads, class count of each
+    decoded head) of one serving request; ``predict`` doubles as its warm-up."""
+    from allophant_tpu_torch.models.projection import PHONEME_LAYER
+
+    batch = request["batch"]
+    kwargs = {key: value for key, value in request.items() if key != "batch"}
+    predictions = estimator.predict(batch, kwargs.get("target_feature_indices"), time_major=False)
+    heads = tuple(sorted(predictions.outputs))
+    widths = {head: value.shape[-1] for head, value in predictions.outputs.items()}
+    if kwargs.get("map_allophones"):
+        widths[PHONEME_LAYER] = estimator.model.plan.allophone_shape[2]
+    finite = all(bool(torch.isfinite(value).all().item()) for value in predictions.outputs.values())
+    check(finite, f"request {name!r}: non-finite log-probs")
+    return batch, kwargs, predictions, heads, widths
+
+
+def phase_serve(estimator, results: dict) -> None:
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+
+    layers = estimator.model.architecture.num_hidden_layers
     for name, request in serving_requests():
-        batch = request["batch"]
-        kwargs = {key: value for key, value in request.items() if key != "batch"}
-        predictions = estimator.predict(batch, kwargs.get("target_feature_indices"), time_major=False)
-        heads = tuple(sorted(predictions.outputs))
-        widths = {head: value.shape[-1] for head, value in predictions.outputs.items()}
-        if kwargs.get("map_allophones"):
-            widths[PHONEME_LAYER] = allophone_phonemes
-        finite = all(bool(torch.isfinite(value).all().item()) for value in predictions.outputs.values())
-        check(finite, f"request {name!r}: non-finite log-probs")
+        batch, kwargs, predictions, heads, widths = request_log_probs(estimator, name, request)
         # Warm-up done by predict above; the launch window covers exactly one
         # predict_decoded call.
         torch.cuda.synchronize()
@@ -371,7 +538,7 @@ def phase_serve(results: dict) -> None:
         audio_seconds = float(np.sum(batch.lengths)) / SAMPLE_RATE
         print(
             f"serve request {name!r}: grid {tuple(grid.shape)} {grid.dtype}, frames {lengths.tolist()},"
-            f" launches {launches}, {seconds * 1e3:.1f} ms, {audio_seconds / seconds:.1f} audio-s/s, finite {finite}",
+            f" launches {launches}, {seconds * 1e3:.1f} ms, {audio_seconds / seconds:.1f} audio-s/s, log-probs finite",
             flush=True,
         )
     # Throughput of the first request's shape, steady state, for information.
@@ -389,8 +556,98 @@ def phase_serve(results: dict) -> None:
         f" {audio_seconds / seconds:.1f} audio-s/s",
         flush=True,
     )
-    del estimator
-    torch.cuda.empty_cache()
+
+
+def check_beam_grid(collected, scores, lengths, heads, widths, beams):
+    """int16 [H, T, B, K] tokens within each head's classes, never the blank,
+    -1 past each row's frames; every row's best beam live; scores finite."""
+    frames = lengths.clamp_min(0).cpu()
+    collected = collected.cpu().to(torch.int32)
+    scores = scores.cpu()
+    check(
+        collected.shape[0] == len(heads) and collected.shape[2:] == (len(frames), beams),
+        f"collected shape {tuple(collected.shape)}",
+    )
+    check(scores.shape == (len(heads), len(frames), beams), f"scores shape {tuple(scores.shape)}")
+    past = torch.arange(collected.shape[1])[:, None] >= frames[None, :]  # [T, B]
+    for index, name in enumerate(heads):
+        tokens = collected[index]
+        check(bool((tokens[past] == -1).all()), f"head {name}: a token past its row's frames")
+        check(bool(((tokens >= -1) & (tokens < widths[name]) & (tokens != 0)).all()), f"head {name}: a token outside 1..{widths[name] - 1}")
+    check(bool(torch.isfinite(scores).all()), "non-finite beam scores")
+    check(bool((scores.amax(dim=-1) > -5e29).all()), "a row without a live beam")
+
+
+def phase_serve_beam(estimator, results: dict) -> None:
+    """The three requests through predict_beam_decoded over all 38 heads at
+    beam width 4, with every launch counter read around each call; then the
+    first request's log-probs from the card searched by the plain versions
+    on the CPU, whose grid must equal the kernels'."""
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+    from allophant_tpu_torch.ops.decode import beam_search_heads
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+
+    layers = estimator.model.architecture.num_hidden_layers
+    beams = 4
+    first = None
+    for name, request in serving_requests():
+        batch, kwargs, predictions, heads, widths = request_log_probs(estimator, name, request)
+        searches = len({widths[head] for head in heads})  # one launch per distinct class count
+        torch.cuda.synchronize()
+        for counter in (oneshot_attention, fused_frame_conv, beam_search_cuda, backtrace_cuda):
+            counter.launches = 0
+        request_start = time.perf_counter()
+        collected, scores, lengths = estimator.predict_beam_decoded(batch, heads=heads, beam_width=beams, **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - request_start
+        launches = {
+            "oneshot_attention": oneshot_attention.launches,
+            "frame_encoder": fused_frame_conv.launches,
+            "beam_search": beam_search_cuda.launches,
+            "beam_backtrace": backtrace_cuda.launches,
+        }
+        for kernel, count in launches.items():
+            results[kernel] += count
+        expected = {"oneshot_attention": layers, "frame_encoder": 1, "beam_search": searches, "beam_backtrace": searches}
+        check(launches == expected, f"beam request {name!r}: launches {launches}, expected {expected}")
+        check_beam_grid(collected, scores, lengths, heads, widths, beams)
+        audio_seconds = float(np.sum(batch.lengths)) / SAMPLE_RATE
+        print(
+            f"serve beam request {name!r}: collected {tuple(collected.shape)} {collected.dtype}, scores"
+            f" {tuple(scores.shape)}, launches {launches}, {seconds * 1e3:.1f} ms, {audio_seconds / seconds:.1f} audio-s/s",
+            flush=True,
+        )
+        if first is None:
+            first = (batch, heads, predictions, collected, scores)
+
+    batch, heads, predictions, collected, scores = first
+    cpu_collected, cpu_scores = beam_search_heads(
+        [predictions.outputs[head].cpu() for head in heads], predictions.lengths.cpu(), beams
+    )
+    mismatched = int((cpu_collected != collected.cpu()).sum().item())
+    live = cpu_scores > -5e29
+    score_error = (cpu_scores[live] - scores.cpu()[live]).abs().max().item()
+    print(
+        f"serve beam: the card's log-probs of the first request searched on the CPU: collected {tuple(cpu_collected.shape)}"
+        f" cells differing {mismatched}, live-score max_abs_err {score_error:.3e}",
+        flush=True,
+    )
+    check(mismatched == 0, "the CPU search of the card's log-probs disagrees with the kernels")
+
+    torch.cuda.synchronize()
+    repeats = 5
+    start = time.perf_counter()
+    for _ in range(repeats):
+        estimator.predict_beam_decoded(batch, heads=heads, beam_width=beams)
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / repeats
+    audio_seconds = float(np.sum(batch.lengths)) / SAMPLE_RATE
+    print(
+        f"serve beam throughput: 8 x 2-10 s request, {repeats} repeats: {seconds * 1e3:.1f} ms per request,"
+        f" {audio_seconds / seconds:.1f} audio-s/s",
+        flush=True,
+    )
 
 
 def phase_float32() -> None:
@@ -425,6 +682,14 @@ def phase_float32() -> None:
         flush=True,
     )
     check(error <= tolerance and mismatched == 0, "float32 card and CPU disagree")
+    beam_card = gpu.predict_beam_decoded(batch, heads=heads, beam_width=4)[0].cpu()
+    beam_cpu = cpu.predict_beam_decoded(batch, heads=heads, beam_width=4)[0]
+    beam_mismatched = int((beam_card != beam_cpu).sum().item())
+    print(
+        f"float32 card vs cpu, 2 s, beam width 4: collected {tuple(beam_card.shape)} cells differing {beam_mismatched}",
+        flush=True,
+    )
+    check(beam_mismatched == 0, "float32 beam grids on the card and the CPU disagree")
 
 
 def main() -> int:
@@ -441,7 +706,7 @@ def main() -> int:
     phase_card()
     phase_build()
     set_float32_precision("highest")
-    launches = {"oneshot_attention": 0, "frame_encoder": 0}
+    launches = {"oneshot_attention": 0, "frame_encoder": 0, "beam_search": 0, "beam_backtrace": 0}
 
     # The first serving request's frames set the attention kernel's serving
     # shape: 10 s buckets to 163840 samples, 511 frames.
@@ -457,8 +722,13 @@ def main() -> int:
     entries = [
         phase_attention(serve_lengths, serve_time),
         phase_frame_encoder(len(first_batch), samples),
+        *phase_beam_kernels(serve_lengths, serve_time),
     ]
-    phase_serve(launches)
+    estimator = build_serving_flagship()
+    phase_serve(estimator, launches)
+    phase_serve_beam(estimator, launches)
+    del estimator
+    torch.cuda.empty_cache()
     phase_float32()
     for entry in entries:
         entry["launches"] = launches[entry["name"]]

@@ -3,9 +3,10 @@ flagship head (36 attribute classifiers, 640-wide embedding composition,
 allophone layer) over a tiny wav2vec2 encoder, with the JAX model's seeded
 weights carried over by the weight bridge.
 
-At "float32" the log-probs of every head agree within 1e-4 and the fused greedy
+At "float32" the log-probs of every head agree within 1e-4, the fused greedy
 grids of ``predict_decoded`` are integer-exact, with and without the allophone
-map and with zero-shot inventories. At "mixed" (bf16 encoder, f32 head) the two
+map and with zero-shot inventories, and so are the beam grids of
+``predict_beam_decoded`` (scores within 1e-4). At "mixed" (bf16 encoder, f32 head) the two
 frameworks round bf16 at different places, so log-probs agree within a looser
 stated tolerance and the token flip rate is recorded. The frozen flagship plan
 shipped with the port is checked against the JAX ``build_flagship()``."""
@@ -146,8 +147,42 @@ def _run_both(estimators):
 
 
 @pytest.fixture(scope="module")
-def float32_results():
-    return _run_both(_both_estimators("float32", jnp.float32, None))
+def float32_estimators():
+    return _both_estimators("float32", jnp.float32, None)
+
+
+@pytest.fixture(scope="module")
+def float32_results(float32_estimators):
+    return _run_both(float32_estimators)
+
+
+def _beam_heads(heads):
+    """Three four-class attribute heads (one stacked search in the port), the
+    phone and the phoneme head: each JAX search compiles a scan of its own,
+    so the end-to-end beam tests take a subset. Stacking heads of equal
+    class count is held to the head-by-head search in test_torch_beam.py."""
+    attributes = [name for name in heads if name not in ("phone", "phoneme")]
+    return (*attributes[:3], "phone", "phoneme")
+
+
+@pytest.fixture(scope="module")
+def float32_beam_results(float32_estimators, float32_results):
+    """Case name -> ((JAX collected, scores, lengths), (the port's)) of
+    ``predict_beam_decoded`` over the heads of ``_beam_heads`` at beam width 4."""
+    jax_estimator, indexer, _built, port = float32_estimators
+    heads = _beam_heads(float32_results[2])
+    audio, lengths, language_ids = _batch_arrays()
+    jax_batch, batch = JaxBatch(audio, lengths, language_ids), Batch(audio, lengths, language_ids)
+    results = {}
+    with exact_frame_encoder_erf():
+        for name, table, map_allophones in _cases(indexer):
+            expected = jax_estimator.predict_beam_decoded(jax_batch, table, heads=heads, beam_width=4, map_allophones=map_allophones)
+            got = port.predict_beam_decoded(batch, table, heads=heads, beam_width=4, map_allophones=map_allophones)
+            results[name] = (
+                (np.asarray(expected[0]), np.asarray(expected[1]), np.asarray(expected[2])),
+                (got[0].numpy(), got[1].numpy(), got[2].numpy()),
+            )
+    return results
 
 
 @pytest.fixture(scope="module")
@@ -179,6 +214,23 @@ def test_float32_decoded_grids_are_exact(float32_results, case):
     assert grid.shape == expected_grid.shape
     assert grid.min() >= 0
     np.testing.assert_array_equal(grid, expected_grid.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["plain", "allophone-map", "zero-shot", "zero-shot-allophone-map"])
+def test_float32_beam_grids_are_exact(float32_beam_results, case):
+    (expected_collected, expected_scores, expected_lengths), (collected, scores, lengths) = float32_beam_results[case]
+    assert collected.dtype == np.int16 and collected.shape == expected_collected.shape
+    assert collected.shape[0] == 5 and collected.shape[-1] == 4
+    np.testing.assert_array_equal(lengths, expected_lengths)
+    np.testing.assert_array_equal(collected, expected_collected)
+    assert scores.dtype == np.float32 and scores.shape == expected_scores.shape
+    np.testing.assert_allclose(scores, expected_scores, atol=1e-4)
+
+
+def test_downsampled_lengths_match(float32_estimators):
+    jax_estimator, _indexer, _built, port = float32_estimators
+    lengths = np.array([0, 400, 4000, 16_000, 163_840])
+    np.testing.assert_array_equal(port.downsampled_lengths(lengths), np.asarray(jax_estimator.downsampled_lengths(lengths)))
 
 
 def test_mixed_log_probs_within_stated_tolerance(mixed_estimators, record_property):

@@ -1,10 +1,12 @@
-"""Where the time of one greedy serving request goes on the GPU, for the
-PyTorch port's full-width flagship under the "mixed" preset.
+"""Where the time of one serving request goes on the GPU, for the PyTorch
+port's full-width flagship under the "mixed" preset.
 
-    python3 tools/profile_torch_serving.py [--trace-dir chiprun_out]
+    python3 tools/profile_torch_serving.py [--beam] [--trace-dir DIR]
 
 Runs the 8-utterance request of chip_smoke.py (2-10 s each, one zero-length
-filler row) through Estimator.predict_decoded under torch.profiler and prints:
+filler row) through Estimator.predict_decoded (greedy), or with ``--beam``
+through Estimator.predict_beam_decoded over all 38 heads at beam width 4 (as
+chip_smoke.py's serve-beam phase), under torch.profiler and prints:
 the card's name and power limit, the wall time per request, the device time
 summed by kernel group and the top kernels, and the device's idle share (1 -
 summed kernel time / wall time; kernels on one stream do not overlap).
@@ -24,8 +26,12 @@ sys.path.insert(0, str(ROOT))
 
 # Profiled requests, after two warm-up requests.
 REPEATS = 3
+# Beam width of --beam.
+BEAM_WIDTH = 4
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
+    ("beam_search_kernel", "beam search (K3)"),
+    ("beam_backtrace_kernel", "beam backtrace"),
     ("oneshot_attention_kernel", "attention (K1)"),
     ("frame_encoder_kernel", "frame encoder (K2)"),
     ("cudnn", "convolution (cuDNN)"),
@@ -49,6 +55,7 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--beam", action="store_true", help=f"profile beam serving at width {BEAM_WIDTH}, not greedy")
     parser.add_argument("--trace-dir", default=str(ROOT / "chiprun_out"))
     args = parser.parse_args()
 
@@ -69,19 +76,25 @@ def main() -> int:
     estimator = build_flagship(seed=0, precision="mixed", device="cuda")
     batch = chip_smoke.serving_requests()[0][1]["batch"]
     heads = tuple(sorted(estimator.predict(batch, time_major=False).outputs))
+    if args.beam:
+        print(f"beam serving, beam width {BEAM_WIDTH}, {len(heads)} heads")
+        request = lambda: estimator.predict_beam_decoded(batch, heads=heads, beam_width=BEAM_WIDTH)  # noqa: E731
+    else:
+        print(f"greedy serving, {len(heads)} heads")
+        request = lambda: estimator.predict_decoded(batch, heads=heads)  # noqa: E731
     for _ in range(2):
-        estimator.predict_decoded(batch, heads=heads)
+        request()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as profiler:
         start = time.perf_counter()
         for _ in range(REPEATS):
-            estimator.predict_decoded(batch, heads=heads)
+            request()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - start) / REPEATS
     trace_dir = Path(args.trace_dir)
     trace_dir.mkdir(parents=True, exist_ok=True)
-    trace = trace_dir / "torch_serving_trace.json"
+    trace = trace_dir / f"torch_serving_trace{'_beam' if args.beam else ''}.json"
     profiler.export_chrome_trace(str(trace))
 
     by_kernel = defaultdict(float)
