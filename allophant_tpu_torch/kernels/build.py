@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels on first use and loads them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with nvcc into its own shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). Libraries land
-in ``allophant_tpu_torch/_build/<hash>/``, where the hash covers the sources and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
+plain C interface (no PyTorch headers, so a build takes seconds); the sources
+share the ``csrc/*.cuh`` headers. Libraries land in
+``allophant_tpu_torch/_build/<hash>/``, where the hash covers the sources, the
+headers and the compiler flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing here runs at import time: the CPU tests import every
 module of the package on machines without nvcc."""
 
@@ -23,7 +24,7 @@ from typing import Dict, Sequence
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_ROOT / "csrc"
 BUILD_ROOT = PACKAGE_ROOT / "_build"
-KERNEL_NAMES = ("oneshot_attention", "frame_encoder", "beam_search")
+KERNEL_NAMES = ("oneshot_attention", "attention_dropout", "attention_backward", "frame_encoder", "beam_search")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,6 +40,30 @@ _SIGNATURES = {
         [_C_POINTER] * 5
         + [ctypes.c_int] * 4
         + [_C_POINTER, ctypes.c_float, ctypes.c_float, ctypes.c_int, _C_POINTER],
+    ),
+    "attention_dropout": (
+        "attention_dropout",
+        "attention_dropout_forward",
+        [_C_POINTER] * 5
+        + [ctypes.c_int] * 4
+        + [_C_POINTER, ctypes.c_float, ctypes.c_float]
+        + [ctypes.c_uint32] * 3
+        + [ctypes.c_float, ctypes.c_int, _C_POINTER],
+    ),
+    "dropout_mask": (
+        "attention_dropout",
+        "dropout_mask_forward",
+        [_C_POINTER] + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 2 + [_C_POINTER],
+    ),
+    "attention_backward": (
+        "attention_backward",
+        "attention_backward",
+        [_C_POINTER] * 9
+        + [ctypes.c_int] * 4
+        + [_C_POINTER]
+        + [ctypes.c_float] * 3
+        + [ctypes.c_uint32] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _C_POINTER],
     ),
     "frame_encoder": (
         "frame_encoder",
@@ -79,6 +104,9 @@ def _source_hash(names: Sequence[str]) -> str:
     for name in sorted(names):
         digest.update(name.encode())
         digest.update((SOURCE_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     return digest.hexdigest()[:16]
 
 

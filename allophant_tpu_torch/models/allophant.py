@@ -9,6 +9,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from allophant_tpu_torch.models.layers import DropoutRng
 from allophant_tpu_torch.models.projection import OUTPUT_DEPENDENCY, HierarchicalProjection, ProjectionPlan
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture, Wav2Vec2Model
 
@@ -36,7 +37,12 @@ class AllophantModel(nn.Module):
 
     ``head_dtype`` (None = ``dtype``) is the compute dtype of the classifier
     head; the "mixed" preset runs the encoder in bf16 and the head in f32, with
-    the hidden states cast once at the boundary."""
+    the hidden states cast once at the boundary. ``param_dtype`` stores the
+    matmul and convolution weights: None keeps each module's compute dtype (a
+    serving model, where the casts are no-ops), float32 gives a training
+    model its f32 master weights, cast at each call as flax casts them.
+    ``frozen_prefix`` is the acoustic model's whole-run-frozen prefix
+    (``whole_run_frozen_prefix``)."""
 
     def __init__(
         self,
@@ -45,14 +51,18 @@ class AllophantModel(nn.Module):
         dtype: torch.dtype = torch.float32,
         head_dtype: Optional[torch.dtype] = None,
         device=None,
+        param_dtype: Optional[torch.dtype] = None,
+        frozen_prefix: int = 0,
     ):
         super().__init__()
         self.architecture = architecture
         self.plan = plan
         self.dtype = dtype
         self.head_dtype = dtype if head_dtype is None else head_dtype
-        self.acoustic_model = Wav2Vec2Model(architecture, dtype, needs_intermediate_taps(plan), device)
-        self.projection = HierarchicalProjection(plan, self.head_dtype, device)
+        self.acoustic_model = Wav2Vec2Model(
+            architecture, dtype, needs_intermediate_taps(plan), device, param_dtype, frozen_prefix
+        )
+        self.projection = HierarchicalProjection(plan, self.head_dtype, device, param_dtype)
 
     def forward(
         self,
@@ -61,12 +71,18 @@ class AllophantModel(nn.Module):
         language_ids: torch.Tensor,
         target_feature_indices: Optional[torch.Tensor] = None,
         predict: bool = False,
+        rng: Optional[DropoutRng] = None,
     ) -> Predictions:
-        hidden_states, frame_lengths = self.acoustic_model(audio, lengths)
+        """``rng=None`` is the deterministic forward; with a ``DropoutRng``
+        every dropout site of the model draws from it."""
+        hidden_states, frame_lengths = self.acoustic_model(audio, lengths, rng)
         if self.head_dtype != self.dtype:
             hidden_states = [states.to(self.head_dtype) for states in hidden_states]
-        outputs = self.projection(hidden_states, frame_lengths, language_ids, target_feature_indices, predict)
+        outputs = self.projection(hidden_states, frame_lengths, language_ids, target_feature_indices, predict, rng)
         return Predictions(outputs, frame_lengths)
+
+    def l2_penalty(self) -> Optional[torch.Tensor]:
+        return self.projection.l2_penalty()
 
     def map_allophones(self, phone_logits: torch.Tensor, language_ids: torch.Tensor) -> torch.Tensor:
         return self.projection.map_allophones(phone_logits, language_ids)

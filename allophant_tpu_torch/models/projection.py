@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from allophant_tpu_torch.models.layers import LayerNorm
+from allophant_tpu_torch.models.layers import Dense, DropoutRng, LayerNorm, dropout
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.oneshot_attention import NEG_INF
 
@@ -57,6 +57,8 @@ class ProjectionPlan:
     #  training_feature_table_shape)
     composition: Optional[Tuple[int, int, Tuple[int, ...], Tuple[int, ...], Tuple[int, int]]] = None
     allophone_shape: Optional[Tuple[int, int, int, int]] = None  # (L, S, P, K)
+    # Dropout on the acoustic-model taps the classifiers read (training only).
+    acoustic_model_dropout: float = 0.0
 
     @classmethod
     def from_dict(cls, data: Mapping[str, Any]) -> "ProjectionPlan":
@@ -99,6 +101,7 @@ class ProjectionPlan:
             tuple(data["output_dependencies"]),
             composition,
             None if allophone_shape is None else tuple(int(value) for value in allophone_shape),
+            float(data.get("acoustic_model_dropout", 0.0)),
         )
 
     def with_output_features(self, output_features: int) -> "ProjectionPlan":
@@ -205,9 +208,19 @@ class AllophoneMapping(nn.Module):
         products = products.masked_fill(~valid[:, None], NEG_INF)
         return products.amax(dim=-1)
 
+    def l2_penalty(self) -> torch.Tensor:
+        """Sum over languages of the Frobenius norms of (W - W0). The square
+        root is guarded twice (a double ``where``), so the gradient at W == W0
+        is 0, torch's norm subgradient, and not NaN."""
+        squared = (self.allophone_matrices - self.initialization).square().sum(dim=(1, 2))
+        positive = squared > 0
+        safe = torch.where(positive, squared, torch.ones_like(squared))
+        return torch.where(positive, safe.sqrt(), torch.zeros_like(squared)).sum()
+
 
 class ProjectingMultiheadAttention(nn.Module):
-    """Linear projection -> LayerNorm -> optional sinusoidal positions -> MHA."""
+    """Linear projection -> LayerNorm -> optional sinusoidal positions -> MHA
+    -> output dropout."""
 
     def __init__(
         self,
@@ -217,20 +230,23 @@ class ProjectingMultiheadAttention(nn.Module):
         add_positional_embeddings: bool,
         dtype: torch.dtype,
         device=None,
+        param_dtype=None,
+        dropout_rate: float = 0.0,
     ):
         super().__init__()
         self.hidden_dimensions = hidden_dimensions
         self.num_heads = num_heads
         self.add_positional_embeddings = add_positional_embeddings
-        self.input_projection = nn.Linear(input_dimensions, hidden_dimensions, dtype=dtype, device=device)
+        self.dropout_rate = dropout_rate
+        self.input_projection = Dense(input_dimensions, hidden_dimensions, dtype, device, param_dtype)
         # flax nn.LayerNorm's default epsilon.
         self.layer_norm = LayerNorm(hidden_dimensions, 1e-6, dtype, device)
-        self.q_proj = nn.Linear(hidden_dimensions, hidden_dimensions, dtype=dtype, device=device)
-        self.k_proj = nn.Linear(hidden_dimensions, hidden_dimensions, dtype=dtype, device=device)
-        self.v_proj = nn.Linear(hidden_dimensions, hidden_dimensions, dtype=dtype, device=device)
-        self.out_proj = nn.Linear(hidden_dimensions, hidden_dimensions, dtype=dtype, device=device)
+        self.q_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
+        self.k_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
+        self.v_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
+        self.out_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
 
-    def forward(self, inputs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, lengths: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         hidden = self.layer_norm(self.input_projection(inputs))
         batch, time, _ = hidden.shape
         if self.add_positional_embeddings:
@@ -246,13 +262,13 @@ class ProjectingMultiheadAttention(nn.Module):
         logits = logits.masked_fill(~pad_mask[:, None, None, :], NEG_INF)
         weights = torch.softmax(logits.float(), dim=-1).to(hidden.dtype)
         context = torch.einsum("bhts,bshd->bthd", weights, value).reshape(batch, time, self.hidden_dimensions)
-        return self.out_proj(context)
+        return dropout(self.out_proj(context), self.dropout_rate, rng)
 
 
 class HierarchicalProjection(nn.Module):
     """Executes a :class:`ProjectionPlan` over acoustic-model hidden states."""
 
-    def __init__(self, plan: ProjectionPlan, dtype: torch.dtype = torch.float32, device=None):
+    def __init__(self, plan: ProjectionPlan, dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
         super().__init__()
         self.plan = plan
         self.classifiers = nn.ModuleDict()
@@ -261,10 +277,11 @@ class HierarchicalProjection(nn.Module):
         for node in plan.nodes:
             if node.attention is not None:
                 self.classifiers[node.name] = ProjectingMultiheadAttention(
-                    node.input_size, node.projection_size, node.attention[0], node.attention[1], dtype, device
+                    node.input_size, node.projection_size, node.attention[0], node.attention[1], dtype, device,
+                    param_dtype, plan.acoustic_model_dropout,
                 )
             else:
-                self.classifiers[node.name] = nn.Linear(node.input_size, node.projection_size, dtype=dtype, device=device)
+                self.classifiers[node.name] = Dense(node.input_size, node.projection_size, dtype, device, param_dtype)
             if node.has_composition:
                 embedding_size, num_embeddings, offsets, _unused, _table_shape = plan.composition
                 self.composition = EmbeddingCompositionLayer(embedding_size, num_embeddings, offsets, dtype, device)
@@ -283,10 +300,13 @@ class HierarchicalProjection(nn.Module):
         language_ids: torch.Tensor,
         target_feature_indices: Optional[torch.Tensor] = None,
         predict: bool = False,
+        rng: Optional[DropoutRng] = None,
     ) -> Dict[str, torch.Tensor]:
         plan = self.plan
         outputs: Dict[str, torch.Tensor] = {f"{OUTPUT_DEPENDENCY}_{index}": tap for index, tap in enumerate(inputs)}
         outputs[OUTPUT_DEPENDENCY] = inputs[-1]
+        for dependency in plan.output_dependencies:
+            outputs[dependency] = dropout(outputs[dependency], plan.acoustic_model_dropout, rng)
 
         projection_outputs: Dict[str, torch.Tensor] = {}
         for node in plan.nodes:
@@ -305,7 +325,7 @@ class HierarchicalProjection(nn.Module):
 
             layer = self.classifiers[node.name]
             if isinstance(layer, ProjectingMultiheadAttention):
-                hidden = layer(dependency_outputs, input_lengths)
+                hidden = layer(dependency_outputs, input_lengths, rng)
             else:
                 hidden = layer(dependency_outputs)
 
@@ -321,6 +341,9 @@ class HierarchicalProjection(nn.Module):
                 projection_outputs[node.name] = hidden
                 outputs[node.name] = hidden
         return projection_outputs
+
+    def l2_penalty(self) -> Optional[torch.Tensor]:
+        return None if self.allophone is None else self.allophone.l2_penalty()
 
     def map_allophones(self, phone_logits: torch.Tensor, language_ids: torch.Tensor) -> torch.Tensor:
         if self.allophone is None:

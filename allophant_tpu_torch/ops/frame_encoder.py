@@ -4,6 +4,11 @@ LayerNorm over channels + exact GELU over raw audio, [B, S] -> [B, S//5 - 1, C].
 
 ``fused_frame_conv`` launches the CUDA kernel ``csrc/frame_encoder.cu`` for
 CUDA tensors and runs the plain twin ``reference_frame_conv`` for CPU tensors.
+``FusedFrameConv`` makes it differentiable: its backward differentiates the
+plain twin, as the JAX package's ``custom_vjp`` differentiates its jnp
+formulation (the TPU kernel has no backward either). The flagship never
+reaches it, since its frozen feature extractor runs without gradients; a
+configuration with ``freeze_feature_encoder`` false does.
 The dot takes f32 operands as the TPU kernel's does (the JAX package's jnp
 ``_reference_frame_conv`` casts to bf16 first, but that is the formulation of
 its backward pass, not the kernel's)."""
@@ -74,3 +79,22 @@ def fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, 
 
 
 fused_frame_conv.launches = 0
+
+
+class FusedFrameConv(torch.autograd.Function):
+    """``fused_frame_conv`` forward; backward through the plain twin."""
+
+    @staticmethod
+    def forward(ctx, audio, kernel, bias, ln_scale, ln_bias, eps: float, out_dtype):
+        ctx.save_for_backward(audio, kernel, bias, ln_scale, ln_bias)
+        ctx.eps, ctx.out_dtype = eps, out_dtype
+        return fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [tensor.detach().requires_grad_(needed) for tensor, needed in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = reference_frame_conv(*inputs, ctx.eps, ctx.out_dtype)
+            wanted = [tensor for tensor in inputs if tensor.requires_grad]
+            gradients = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(gradients) if tensor.requires_grad else None for tensor in inputs), None, None)

@@ -11,11 +11,17 @@ Layout changes made on the way:
 - conv kernels [K, Cin/groups, Cout] become torch Conv1d weights [Cout, Cin/groups, K];
 - ``classifiers_<name>`` becomes ``classifiers[<name>]``;
 - the allophone matrices, their initialization, the gather table and the
-  composition feature table are carried over as they are."""
+  composition feature table are carried over as they are.
+
+``jax_params_from_state`` is the inverse bridge, for parameters and for
+anything shaped like them (gradients, optimizer moments): the port's named
+tensors back to the JAX ``params`` tree layout, with the fused ``qkv_proj``
+split into q, k and v and the encoder layers stacked."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -137,6 +143,68 @@ def state_dict_from_jax(variables: Mapping, num_layers: int) -> Dict[str, torch.
         **{f"projection.{key}": value for key, value in projection_state_from_jax(params["projection"], buffers).items()},
     }
     return {key: torch.tensor(np.asarray(value)) for key, value in state.items()}
+
+
+def _put(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _jax_leaf(module: str, leaf: str, value: np.ndarray):
+    """(JAX leaf name, value) of a port ``weight`` or ``bias`` of the JAX
+    module named ``module``: norms have a ``scale``, convolutions a [K, Cin, Cout]
+    ``kernel``, dense layers an [in, out] ``kernel``."""
+    if leaf == "bias":
+        return "bias", value
+    if "norm" in module:
+        return "scale", value
+    return "kernel", value.transpose(2, 1, 0) if module.startswith("conv") else value.T
+
+
+def _jax_module_path(path, architecture: Wav2Vec2Architecture):
+    if path[:2] == ["acoustic_model", "feature_extractor"]:
+        kind, index = path[2], path[3]
+        if kind == "convs":
+            return [*path[:2], f"conv_{index}"]
+        return [*path[:2], "group_norm" if architecture.feat_extract_norm == "group" else f"layer_norm_{index}"]
+    if path[:2] == ["projection", "classifiers"]:
+        return ["projection", f"classifiers_{path[2]}", *path[3:]]
+    return path
+
+
+def jax_params_from_state(state: Mapping[str, Any], architecture: Wav2Vec2Architecture) -> Dict:
+    """The JAX ``params`` tree (nested dicts of numpy arrays) from the port's
+    parameter names -> tensors or arrays: the inverse of
+    ``state_dict_from_jax`` for parameters and anything shaped like them."""
+    tree: Dict = {}
+    layers: Dict[tuple, list] = {}
+
+    def stack(path, leaf, value, index):
+        key, converted = _jax_leaf(path[-1], leaf, value)
+        layers.setdefault((*path, key), [None] * architecture.num_hidden_layers)[index] = converted
+
+    for name, value in state.items():
+        value = np.array(value.detach().cpu() if isinstance(value, torch.Tensor) else value)  # a copy
+        *path, leaf = name.split(".")
+        layer = re.fullmatch(r"acoustic_model\.encoder\.layers\.(\d+)", ".".join(path[:4]))
+        if layer is not None:
+            index, path = int(layer.group(1)), path[4:]
+            if path[-1] == "qkv_proj":
+                for part, projection in zip(np.split(value, 3), ("q_proj", "k_proj", "v_proj")):
+                    stack((*path[:-1], projection), leaf, part, index)
+            else:
+                stack(path, leaf, value, index)
+            continue
+        path = _jax_module_path(path, architecture)
+        if path[-1] in ("composition", "allophone"):
+            _put(tree, (*path, leaf), value)
+        else:
+            key, converted = _jax_leaf(path[-1], leaf, value)
+            _put(tree, (*path, key), converted)
+    for path, values in layers.items():
+        _put(tree, ("acoustic_model", "encoder", "layers", *path), np.stack(values))
+    return tree
 
 
 def load_jax_variables(model: AllophantModel, variables: Mapping) -> AllophantModel:

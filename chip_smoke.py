@@ -15,6 +15,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
      request, a 2400-class inventory, T = 2 and 37, K = 1 and 8, the
      widest class count (32767) and a blank index of 3;
+     Training kernels: the attention-dropout forward (K5) and the fused
+     attention backward (K4, with dropout and without) against their twins
+     in bf16 and f32 at the training shape (B = 8, T = 499, H = 16, strided
+     q/k/v) and at T = 512, 1535 and 2 with a ragged and a zero-length row,
+     K4 also against autograd of the forward twins, each bit-equal over two
+     calls; the dropout-mask kernel (K6) integer-equal to its twin;
   4. serve: the full-width flagship (XLS-R 300M + hierarchical head, seeded
      random weights) under the default "mixed" preset answers three requests
      through Estimator.predict_decoded, with the kernel launch counters read
@@ -24,13 +30,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      counters read around each; the first request's log-probs from the card
      are searched on the CPU, and the grids must be equal;
   6. float32: one 2 s request in "float32" on the card and on the CPU (twins),
-     greedy and beam grids equal.
+     greedy and beam grids equal;
+  7. train: the full-width training flagship ("mixed", f32 master weights,
+     the flagship's dropout, Adam, schedule, clipping and frozen feature
+     extractor) takes three steps through make_train_step at A = 2, B = 8,
+     10 s, all 37 CTC heads, with launch counters read around each step and
+     the plain twins forbidden; the step time, audio-s/s and peak memory are
+     printed, then one make_eval_step call;
+  8. train float32: one deterministic step of a full-width 4-layer flagship
+     on the card and on the CPU: metrics, gradients and parameters compared.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -293,6 +308,217 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                     "shape": f"q/k/v [{batch}, {time_steps}, {heads * head_dim}] {dtype_name}",
                 }
     return entry
+
+
+TRAIN_BATCH, TRAIN_TIME, HEADS, HEAD_DIM = 8, 499, 16, 64
+# (time steps, row lengths, label): the training shape reads q/k/v as strided
+# views of the fused projection, as the encoder does; the others are
+# contiguous, with a zero-length and a ragged row. T = 2 is one ragged tile.
+DROPOUT_CASES = (
+    [(TRAIN_TIME, [TRAIN_TIME] * TRAIN_BATCH, "train")]
+    + [(t, [0, t - 123] + [t] * (TRAIN_BATCH - 2), "ragged") for t in (512, 1535)]
+    + [(2, [0, 1] + [2] * (TRAIN_BATCH - 2), "short")]
+)
+# Limits in the style of K1's, both scaled by RMS(twin): RMS(kernel - twin) <=
+# rms_tolerance * RMS(twin), and per element |kernel - twin| <= rtol * |twin| +
+# scale_tolerance * RMS(twin). f32: plain f32 in both, differing in the online
+# rescaling and the summation order. bf16: both round the masked weights (and
+# in the backward ds) to bf16, the kernel against the running peak and the twin
+# against the final one, and both round the output.
+KERNEL_LIMITS = {torch.bfloat16: (5e-3, 2**-6, 5e-2), torch.float32: (1e-5, 0.0, 1e-4)}
+DROPOUT_SEEDS = (1_234_567, -89_101_112)
+
+
+def compare(label: str, pairs, limits) -> float:
+    """Holds every entry of each (name, got, expected) in ``pairs`` to
+    ``limits``; prints one line with the worst of them and returns the max abs
+    error."""
+    rms_tolerance, rtol, scale_tolerance = limits
+    error = ratio = worst = 0.0
+    for name, got, expected in pairs:
+        difference = (got.float() - expected.float()).abs()
+        twin = expected.float()
+        rms = twin.square().mean().sqrt().item()
+        part_ratio = difference.square().mean().sqrt().item() / rms
+        part_worst = (difference / (rtol * twin.abs() + scale_tolerance * rms)).max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        check(finite and part_ratio <= rms_tolerance and part_worst <= 1.0, f"{label} {name} disagrees: rms ratio {part_ratio}, share {part_worst}")
+        error, ratio, worst = max(error, difference.max().item()), max(ratio, part_ratio), max(worst, part_worst)
+    print(
+        f"  {label}: max_abs_err {error:.3e}, error rms / twin rms {ratio:.3e} (tolerance {rms_tolerance:.0e}),"
+        f" worst share of the per-element limit {worst:.3f} ({rtol:.2e} * |twin| + {scale_tolerance:.0e} * twin rms), finite",
+        flush=True,
+    )
+    return error
+
+
+def phase_dropout_mask() -> dict:
+    """K6 integer-equal to its twin at the training shape, its keep rate at
+    rate 0.1 within 5e-3 of keep_prob, and two calls bit-equal."""
+    from allophant_tpu_torch.ops.oneshot_attention import dropout_mask_bits, keep_threshold, reference_dropout_mask_bits
+
+    shape = (TRAIN_BATCH, HEADS, TRAIN_TIME)
+    got = dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda")
+    again = dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda")
+    expected = reference_dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda")
+    torch.cuda.synchronize()
+    got64, expected64 = got.to(torch.int64), expected.to(torch.int64)
+    differing = int((got64 != expected64).sum().item())
+    repeat_differing = int((got64 != again.to(torch.int64)).sum().item())
+    threshold = keep_threshold(0.1)
+    keep_rate = (got64 < threshold).double().mean().item()
+    keep_prob = threshold / 2**32
+    print(
+        f"kernel dropout_mask B={TRAIN_BATCH} H={HEADS} T={TRAIN_TIME}: {differing} of {got.numel()} draws differ from the twin,"
+        f" {repeat_differing} between two calls; keep rate at 0.1 {keep_rate:.6f} vs keep_prob {keep_prob:.6f}",
+        flush=True,
+    )
+    check(differing == 0 and repeat_differing == 0, "dropout_mask disagrees with its twin or itself")
+    check(abs(keep_rate - keep_prob) <= 5e-3, f"keep rate {keep_rate} is off keep_prob {keep_prob}")
+    other = dropout_mask_bits((DROPOUT_SEEDS[0] + 1, DROPOUT_SEEDS[1]), *shape, device="cuda")
+    check(not torch.equal(other.view(torch.int32), got.view(torch.int32)), "another seed gave the same draws")
+    kernel_ms = cuda_ms(lambda: dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda"), 20)
+    plain_ms = cuda_ms(lambda: reference_dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda"), 3)
+    bound, bound_by = bound_ms(got.numel() * 4, 0, "float32")
+    print(f"time dropout_mask: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+    return {
+        "name": "dropout_mask",
+        "route": "cuda",
+        "source": "allophant_tpu_torch/csrc/attention_dropout.cu",
+        "replaces": "allophant_tpu/ops/oneshot_attention.py:227",
+        "max_abs_err": 0.0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": f"u32 [{TRAIN_BATCH}, {HEADS}, {TRAIN_TIME}, {TRAIN_TIME}]",
+        "note": "the oracle of K4 and K5: launched by their checks, not by the training step",
+    }
+
+
+def phase_dropout_attention() -> list:
+    """K5 and K4 against their twins in bf16 and f32 at every DROPOUT_CASES
+    shape (K5 at rates 0.1 and 0.5, K4 at 0.1 and None, every entry of dq,
+    dk and dv held), K4 also against the autograd of the forward twins in
+    f32, and each kernel bit-equal over two calls. Returns the JSON entries of
+    K5 and K4 at the training shape in bf16 (the "mixed" encoder dtype)."""
+    from allophant_tpu_torch.ops.oneshot_attention import (
+        oneshot_attention_backward,
+        oneshot_dropout_attention,
+        reference_oneshot,
+        reference_oneshot_backward,
+        reference_oneshot_dropout,
+    )
+
+    scale = HEAD_DIM**-0.5
+    entries = {}
+    for time_steps, row_lengths, label in DROPOUT_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dtype_name = str(dtype).removeprefix("torch.")
+            q, k, v, bias, lengths = attention_inputs(row_lengths, time_steps, HEADS, HEAD_DIM, dtype, fused_qkv=label == "train")
+            generator = torch.Generator(device="cuda").manual_seed(time_steps + 1)
+            grad = torch.randn(q.shape, generator=generator, device="cuda").to(dtype)
+            layout = "strided" if label == "train" else "contiguous"
+            shape = f"{dtype_name} B={TRAIN_BATCH} T={time_steps} H={HEADS} hd={HEAD_DIM} {layout} lengths={lengths.tolist()}"
+            rates = (0.1, 0.5) if time_steps in (TRAIN_TIME, 512) else (0.1,)
+            for rate in rates:
+                print(f"kernel attention_dropout {shape} rate={rate}:", flush=True)
+                got = oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate)
+                again = oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate)
+                expected = reference_oneshot_dropout(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate)
+                torch.cuda.synchronize()
+                error = compare("against the twin", [("out", got, expected)], KERNEL_LIMITS[dtype])
+                check(torch.equal(got, again), "attention_dropout: two calls differ")
+                if label == "train" and dtype == torch.bfloat16 and rate == 0.1:
+                    entries["attention_dropout"] = time_dropout_forward(q, k, v, bias, lengths, scale, rate, error)
+            for rate in (0.1, None):
+                seeds = DROPOUT_SEEDS if rate is not None else None
+                print(f"kernel attention_backward {shape} rate={rate}:", flush=True)
+                got = oneshot_attention_backward(q, k, v, grad, bias, seeds, scale, HEADS, rate)
+                again = oneshot_attention_backward(q, k, v, grad, bias, seeds, scale, HEADS, rate)
+                expected = reference_oneshot_backward(q, k, v, grad, bias, seeds, scale, HEADS, rate)
+                torch.cuda.synchronize()
+                error = compare("dq, dk, dv against the twin", list(zip(("dq", "dk", "dv"), got, expected)), KERNEL_LIMITS[dtype])
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), "attention_backward: two calls differ")
+                if dtype == torch.float32:
+                    inputs = [tensor.detach().clone().requires_grad_() for tensor in (q, k, v)]
+                    if rate is None:
+                        out = reference_oneshot(*inputs, bias, scale, HEADS)
+                    else:
+                        out = reference_oneshot_dropout(*inputs, bias, seeds, scale, HEADS, rate)
+                    autograd = torch.autograd.grad(out, inputs, grad)
+                    compare("dq, dk, dv against autograd of the forward twin", list(zip(("dq", "dk", "dv"), got, autograd)), KERNEL_LIMITS[dtype])
+                if label == "train" and dtype == torch.bfloat16 and rate == 0.1:
+                    entries["attention_backward"] = time_backward(q, k, v, grad, bias, lengths, scale, rate, error)
+    return [entries["attention_dropout"], entries["attention_backward"]]
+
+
+def time_dropout_forward(q, k, v, bias, lengths, scale, rate, error) -> dict:
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_dropout_attention, reference_oneshot_dropout
+
+    batch, time_steps, _ = q.shape
+    kernel_ms = cuda_ms(lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 20)
+    plain_ms = cuda_ms(lambda: reference_oneshot_dropout(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
+    q4, k4, v4 = (tensor.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2) for tensor in (q, k, v))
+    mask = bias.to(q.dtype)[:, None, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, dropout_p=rate), 20)
+    bytes_moved, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
+    bound, bound_by = bound_ms(bytes_moved, operations, str(q.dtype).removeprefix("torch."))
+    print(
+        f"time attention_dropout B={batch} T={time_steps} rate={rate}: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms,"
+        f" scaled_dot_product_attention(dropout_p={rate}) {library_ms:.4f} ms (its own mask), bound {bound:.4f} ms ({bound_by})",
+        flush=True,
+    )
+    return {
+        "name": "attention_dropout",
+        "route": "cuda",
+        "source": "allophant_tpu_torch/csrc/attention_dropout.cu",
+        "replaces": "allophant_tpu/ops/oneshot_attention.py:180",
+        "max_abs_err": error,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": f"q/k/v [{batch}, {time_steps}, {HEADS * HEAD_DIM}] {q.dtype}, rate {rate}",
+    }
+
+
+def time_backward(q, k, v, grad, bias, lengths, scale, rate, error) -> dict:
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention_backward, reference_oneshot_backward
+
+    batch, time_steps, _ = q.shape
+    kernel_ms = cuda_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
+    plain_ms = cuda_ms(lambda: reference_oneshot_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
+    inputs = [tensor.detach().view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2).requires_grad_() for tensor in (q, k, v)]
+    mask = bias.to(q.dtype)[:, None, None, :]
+    out = F.scaled_dot_product_attention(*inputs, attn_mask=mask, dropout_p=rate)
+    grad4 = grad.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, grad4, retain_graph=True), 10)
+    _, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
+    # q, k, v, g and the bias read, dq, dk, dv written; five products per
+    # (query, key) pair (s, dp, dv, dq, dk) against the forward's two.
+    bytes_moved = 7 * q.numel() * q.element_size() + bias.numel() * 4
+    bound, bound_by = bound_ms(bytes_moved, operations * 5 / 2, str(q.dtype).removeprefix("torch."))
+    print(
+        f"time attention_backward B={batch} T={time_steps} rate={rate}: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms,"
+        f" scaled_dot_product_attention(dropout_p={rate}) backward {library_ms:.4f} ms (its own mask), bound {bound:.4f} ms ({bound_by})",
+        flush=True,
+    )
+    return {
+        "name": "attention_backward",
+        "route": "cuda",
+        "source": "allophant_tpu_torch/csrc/attention_backward.cu",
+        "replaces": "allophant_tpu/ops/oneshot_attention.py:255",
+        "max_abs_err": error,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "shape": f"q/k/v/g [{batch}, {time_steps}, {HEADS * HEAD_DIM}] {q.dtype}, rate {rate}",
+    }
 
 
 def beam_inputs(batch, time_steps, classes, lengths, seed, scale=2.0):
@@ -692,6 +918,245 @@ def phase_float32() -> None:
     check(beam_mismatched == 0, "float32 beam grids on the card and the CPU disagree")
 
 
+TRAIN_ACCUMULATION, TRAIN_SECONDS, TRAIN_LABELS, TRAIN_STEPS = 2, 10, 30, 3
+# Per-leaf gradient limit of the float32 card-vs-CPU step, as in the CPU
+# parity test (tests/test_torch_train_step.py): the allophone layer's max
+# can route a nearly tied phoneme's gradient to another allophone under
+# other f32 rounding, and the 37 heads' contributions cancel in the
+# encoder's gradients; a leaf that is zero in exact arithmetic is held to
+# 1e-6 of the largest of all.
+GRAD_SHARE, ZERO_FLOOR = 1e-3, 1e-6
+
+
+def training_microbatches(model, accumulation: int, batch: int, samples: int, device, seed: int = 0) -> dict:
+    """[A, B, ...] tensors on ``device``: seeded audio of full length, the four
+    languages in turn, TRAIN_LABELS labels per head, the phoneme head's drawn
+    from each row's language inventory (the phonemes the allophone gather
+    table maps; outside it a label is a hard-masked class)."""
+    rng = np.random.default_rng(seed)
+    gather = model.projection.allophone.gather_indices.cpu().numpy()  # [L, P, K]
+    pools = [np.flatnonzero((gather[language, 1:] >= 0).any(axis=-1)) + 1 for language in range(gather.shape[0])]
+    language_ids = np.tile(np.arange(batch) % len(pools), (accumulation, 1))
+    arrays = {
+        "audio": (0.1 * rng.standard_normal((accumulation, batch, samples))).astype(np.float32),
+        "lengths": np.full((accumulation, batch), samples),
+        "language_ids": language_ids,
+    }
+    for node in model.plan.nodes:
+        if node.has_allophone:
+            labels = np.stack([np.stack([rng.choice(pools[language], TRAIN_LABELS) for language in row]) for row in language_ids])
+        else:
+            labels = rng.integers(1, node.output_size, (accumulation, batch, TRAIN_LABELS))
+        arrays[f"labels_{node.name}"] = labels
+        arrays[f"label_lengths_{node.name}"] = np.full((accumulation, batch), TRAIN_LABELS)
+    return {key: torch.from_numpy(np.asarray(value)).to(device) for key, value in arrays.items()}
+
+
+class TwinsForbidden:
+    """Within the block, any plain twin of a kernel on the path raises, so a
+    run shows that no twin ran on the card."""
+
+    def __enter__(self):
+        import allophant_tpu_torch.ops.frame_encoder as frame_encoder
+        import allophant_tpu_torch.ops.oneshot_attention as attention
+
+        names = ("reference_oneshot", "reference_oneshot_dropout", "reference_oneshot_backward", "reference_dropout_mask_bits")
+        self.saved = [(attention, name, getattr(attention, name)) for name in names]
+        self.saved.append((frame_encoder, "reference_frame_conv", frame_encoder.reference_frame_conv))
+        for module, name, _ in self.saved:
+            setattr(module, name, self.forbidden(name))
+        return self
+
+    @staticmethod
+    def forbidden(name):
+        def raise_on_call(*_args, **_kwargs):
+            raise SmokeFailure(f"the plain twin {name} ran on the card's path")
+
+        return raise_on_call
+
+    def __exit__(self, *_exc):
+        for module, name, function in self.saved:
+            setattr(module, name, function)
+        return False
+
+
+def kernel_counters() -> dict:
+    """Launch-counted wrappers by their JSON names."""
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import (
+        dropout_mask_bits,
+        oneshot_attention,
+        oneshot_attention_backward,
+        oneshot_dropout_attention,
+    )
+
+    return {
+        "oneshot_attention": oneshot_attention,
+        "attention_dropout": oneshot_dropout_attention,
+        "attention_backward": oneshot_attention_backward,
+        "dropout_mask": dropout_mask_bits,
+        "frame_encoder": fused_frame_conv,
+    }
+
+
+def counted(run):
+    """(run's result, launches of each counted kernel during it)."""
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    result = run()
+    torch.cuda.synchronize()
+    return result, {name: counter.launches for name, counter in counters.items()}
+
+
+def phase_train(results: dict) -> None:
+    """The full-width training flagship ("mixed": bf16 encoder, f32 head, f32
+    master weights) takes TRAIN_STEPS steps through make_train_step at A = 2,
+    B = 8, 10 s, with the flagship's dropout (seeds from its config), Adam,
+    schedule, clipping and frozen feature extractor; launch counters read
+    around each step, the plain twins forbidden. Then one make_eval_step call
+    on the first microbatch."""
+    from allophant_tpu_torch.demo import build_flagship_for_training
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.training.train_step import (
+        build_freeze_plan,
+        build_loss_plan,
+        create_optimizer,
+        make_eval_step,
+        make_train_step,
+    )
+
+    start = time.perf_counter()
+    config, model = build_flagship_for_training(seed=0, precision="mixed", device="cuda")
+    optimizer = create_optimizer(config, model.architecture.hidden_size, model.parameters())
+    loss_plan = build_loss_plan(config, model.plan.allophone_shape is not None)
+    step = make_train_step(model, optimizer, loss_plan, build_freeze_plan(config.acoustic_model))
+    samples = TRAIN_SECONDS * SAMPLE_RATE
+    microbatches = training_microbatches(model, TRAIN_ACCUMULATION, TRAIN_BATCH, samples, "cuda")
+    rng = DropoutRng.from_seed(config.seed, "cuda")
+    layers = model.architecture.num_hidden_layers
+    before = {name: parameter.detach().clone() for name, parameter in model.named_parameters()}
+    torch.cuda.synchronize()
+    print(
+        f"train: flagship built in {time.perf_counter() - start:.2f} s ({layers} layers, mixed, f32 parameters,"
+        f" frozen prefix {model.acoustic_model.frozen_prefix}, dropout {model.architecture.attention_dropout}/"
+        f"{model.architecture.hidden_dropout}/{model.architecture.activation_dropout}, taps {model.plan.acoustic_model_dropout})",
+        flush=True,
+    )
+    expected = {
+        "oneshot_attention": 0,
+        "attention_dropout": TRAIN_ACCUMULATION * layers,
+        "attention_backward": TRAIN_ACCUMULATION * layers,
+        "dropout_mask": 0,
+        "frame_encoder": TRAIN_ACCUMULATION,
+    }
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    with TwinsForbidden():
+        for index in range(TRAIN_STEPS):
+            step_start = time.perf_counter()
+            metrics, launches = counted(lambda: step(microbatches, rng))
+            seconds.append(time.perf_counter() - step_start)
+            for name, count in launches.items():
+                results[name] += count
+            check(launches == expected, f"train step {index}: launches {launches}, expected {expected}")
+            finite = all(np.isfinite(metrics[key]) for key in ("loss_sum", "mean_loss", "grad_norm"))
+            check(finite, f"train step {index}: non-finite metrics {metrics}")
+            print(
+                f"train step {index}: mean_loss {metrics['mean_loss']:.6f}, grad_norm {metrics['grad_norm']:.6f},"
+                f" label_count {metrics['label_count']:.0f}, launches {launches}, {seconds[-1] * 1e3:.1f} ms",
+                flush=True,
+            )
+    peak = torch.cuda.max_memory_allocated()
+    groups = ("acoustic_model.feature_extractor", "acoustic_model.feature_projection", "acoustic_model.encoder", "projection")
+    moved = {
+        group: sum(not torch.equal(before[name], parameter) for name, parameter in model.named_parameters() if name.startswith(group))
+        for group in groups
+    }
+    sizes = {group: sum(name.startswith(group) for name in before) for group in groups}
+    print(f"train: parameters moved per group {moved} of {sizes}", flush=True)
+    check(moved[groups[0]] == 0, "the frozen feature extractor moved")
+    check(all(moved[group] > 0 for group in groups[1:]), "a trainable group did not move")
+    steady = float(np.mean(seconds[1:]))
+    audio_seconds = TRAIN_ACCUMULATION * TRAIN_BATCH * TRAIN_SECONDS
+    print(
+        f"train throughput: A={TRAIN_ACCUMULATION} B={TRAIN_BATCH} {TRAIN_SECONDS} s, steps 2-{TRAIN_STEPS}:"
+        f" {steady * 1e3:.1f} ms per step, {audio_seconds / steady:.1f} audio-s/s,"
+        f" peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)",
+        flush=True,
+    )
+    eval_step = make_eval_step(model, loss_plan)
+    with TwinsForbidden():
+        eval_metrics, launches = counted(lambda: eval_step({key: value[0] for key, value in microbatches.items()}))
+    for name, count in launches.items():
+        results[name] += count
+    expected = {"oneshot_attention": layers, "attention_dropout": 0, "attention_backward": 0, "dropout_mask": 0, "frame_encoder": 1}
+    check(launches == expected, f"eval step: launches {launches}, expected {expected}")
+    check(np.isfinite(eval_metrics["loss_sum"]), "eval step: non-finite loss")
+    print(f"eval step: loss_sum {eval_metrics['loss_sum']:.3f}, label_count {eval_metrics['label_count']:.0f}, launches {launches}", flush=True)
+
+
+def phase_train_float32() -> None:
+    """One deterministic step (every dropout off) of a full-width, 4-layer
+    training flagship in "float32" on the card and on the CPU (plain twins)
+    from the same weights and microbatches: metrics, gradients and the
+    updated parameters compared."""
+    from allophant_tpu_torch.demo import build_flagship_for_training
+    from allophant_tpu_torch.models.allophant import AllophantModel
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.training.train_step import build_freeze_plan, build_loss_plan, create_optimizer, make_train_step
+
+    architecture = dataclasses.replace(Wav2Vec2Architecture(), num_hidden_layers=4)
+    config, card_model = build_flagship_for_training(seed=1, architecture=architecture, precision="float32", device="cuda")
+    cpu_model = AllophantModel(
+        card_model.architecture, card_model.plan, torch.float32, None, "cpu", param_dtype=torch.float32,
+        frozen_prefix=card_model.acoustic_model.frozen_prefix,
+    )
+    cpu_model.load_state_dict({key: value.cpu() for key, value in card_model.state_dict().items()})
+    before = {name: parameter.detach().cpu().clone() for name, parameter in cpu_model.named_parameters()}
+    results = {}
+    for label, model, device in (("card", card_model, "cuda"), ("cpu", cpu_model, "cpu")):
+        optimizer = create_optimizer(config, architecture.hidden_size, model.parameters())
+        loss_plan = build_loss_plan(config, True)
+        step = make_train_step(model, optimizer, loss_plan, build_freeze_plan(config.acoustic_model))
+        microbatches = training_microbatches(model, 2, 2, 2 * SAMPLE_RATE, device, seed=4)
+        metrics = step(microbatches, None)
+        parameters = {name: parameter.detach().cpu() for name, parameter in model.named_parameters()}
+        gradients = {name: parameter.grad.detach().cpu() for name, parameter in model.named_parameters()}
+        results[label] = (metrics, parameters, gradients)
+    (card, card_parameters, card_grads), (cpu, cpu_parameters, cpu_grads) = results["card"], results["cpu"]
+    relative = {key: abs(card[key] - cpu[key]) / abs(cpu[key]) for key in ("mean_loss", "grad_norm")}
+    floor = ZERO_FLOOR * max(value.abs().max().item() for value in cpu_grads.values())
+    grad_share = max(
+        (card_grads[name] - value).abs().max().item() / max(value.abs().max().item(), floor / GRAD_SHARE)
+        for name, value in cpu_grads.items()
+    )
+    # Adam's first update is lr * g / (|g| + 1e-8): each parameter is held to
+    # two f32 spacings of the largest value it can round to (twice itself, or
+    # of the learning rate near 0) and eight of the learning rate, plus the
+    # gradient limit carried through the update (2 lr where the gradient's
+    # sign is within its limit).
+    learning_rate = float(config.lr_schedule.schedule(architecture.hidden_size)(0))
+    parameter_share = 0.0
+    for name, value in cpu_parameters.items():
+        grad = cpu_grads[name].abs()
+        grad_error = max(GRAD_SHARE * grad.max().item(), floor)
+        carried = torch.where(grad > 2 * grad_error, learning_rate * 1e-8 * grad_error / (grad - grad_error + 1e-8) ** 2, 2 * learning_rate)
+        spacing = torch.from_numpy(np.spacing(2 * np.maximum(before[name].abs().numpy(), np.float32(learning_rate))))
+        limit = 2 * spacing + 8 * float(np.spacing(np.float32(learning_rate))) + carried
+        parameter_share = max(parameter_share, ((card_parameters[name] - value).abs() / limit).max().item())
+    print(
+        f"train float32 card vs cpu (4 layers, A=2 B=2 2 s): mean_loss {card['mean_loss']:.6f} vs {cpu['mean_loss']:.6f},"
+        f" grad_norm {card['grad_norm']:.6f} vs {cpu['grad_norm']:.6f}, relative differences {relative} (tolerance 1e-4);"
+        f" worst gradient difference {grad_share:.3e} of its leaf's largest (tolerance {GRAD_SHARE:.0e});"
+        f" worst share of the parameter limit {parameter_share:.3f}",
+        flush=True,
+    )
+    check(all(value <= 1e-4 for value in relative.values()), "float32 train step: card and CPU metrics disagree")
+    check(grad_share <= GRAD_SHARE and parameter_share <= 1.0, "float32 train step: card and CPU gradients or parameters disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -706,7 +1171,10 @@ def main() -> int:
     phase_card()
     phase_build()
     set_float32_precision("highest")
-    launches = {"oneshot_attention": 0, "frame_encoder": 0, "beam_search": 0, "beam_backtrace": 0}
+    launches = dict.fromkeys(
+        ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),
+        0,
+    )
 
     # The first serving request's frames set the attention kernel's serving
     # shape: 10 s buckets to 163840 samples, 511 frames.
@@ -724,12 +1192,17 @@ def main() -> int:
         phase_frame_encoder(len(first_batch), samples),
         *phase_beam_kernels(serve_lengths, serve_time),
     ]
+    dropout_forward, backward = phase_dropout_attention()
+    entries += [backward, dropout_forward, phase_dropout_mask()]
     estimator = build_serving_flagship()
     phase_serve(estimator, launches)
     phase_serve_beam(estimator, launches)
     del estimator
     torch.cuda.empty_cache()
     phase_float32()
+    phase_train(launches)
+    torch.cuda.empty_cache()
+    phase_train_float32()
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

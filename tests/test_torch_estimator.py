@@ -32,6 +32,7 @@ from allophant_tpu.models.wav2vec2 import Wav2Vec2Architecture as JaxArchitectur
 from allophant_tpu.training.estimator import Estimator as JaxEstimator
 from allophant_tpu_torch.data.batch import Batch
 from allophant_tpu_torch.demo import PACKAGE_DATA, build_flagship, flagship_data, flagship_zero_shot_table
+from allophant_tpu_torch.models.allophant import AllophantModel
 from allophant_tpu_torch.models.projection import ProjectionPlan
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 from allophant_tpu_torch.weights import estimator_from_jax
@@ -58,7 +59,7 @@ TINY = dict(
 # run in f32 would pass it too. Where the port casts is checked by
 # test_mixed_casts_where_flax_does.
 MIXED_LOG_PROB_ATOL = 0.5
-# Flax modules with no counterpart in the inference-only port.
+# Flax modules with no module counterpart in the port (its dropout is a function).
 JAX_ONLY_MODULES = ("Dropout", "acoustic_dropout")
 # Flax module name -> the port's, applied in order.
 PORT_MODULE_NAMES = (
@@ -303,7 +304,10 @@ def test_mixed_casts_where_flax_does(mixed_estimators):
     """At "mixed", every port module returns the dtype its flax counterpart
     returns (bf16 encoder, f32 head): the casts sit where flax's ``dtype=``
     puts them. The encoder layers, whose intermediates ``nn.scan`` does not
-    keep, are held to a flax EncoderLayer applied on its own."""
+    keep, are held to a flax EncoderLayer applied on its own. The training
+    form of the same model keeps every parameter in f32 (flax's
+    ``param_dtype``), casts at the same places and computes the same outputs
+    as the serving form, whose weights are stored in the compute dtypes."""
     jax_estimator, _indexer, built, port = mixed_estimators
     audio, lengths, language_ids = _batch_arrays()
     batch = len(audio)
@@ -327,6 +331,25 @@ def test_mixed_casts_where_flax_does(mixed_estimators):
     assert {name: got.get(name) for name in expected} == expected
     assert expected["acoustic_model.encoder.layers.0.attention.qkv_proj"] == {"bfloat16"}
     assert expected["projection.classifiers.phoneme"] == {"float32"}
+
+    serving = port.model
+    training = AllophantModel(
+        serving.architecture, serving.plan, torch.bfloat16, torch.float32, device="cpu", param_dtype=torch.float32
+    )
+    training.load_state_dict(estimator_from_jax(
+        dataclasses.asdict(built.model.acoustic_config), dataclasses.asdict(built.model.plan),
+        jax_estimator.variables, "float32", device="cpu",
+    ).model.state_dict())
+    assert {parameter.dtype for parameter in training.parameters()} == {torch.float32}
+    assert torch.bfloat16 in {parameter.dtype for parameter in serving.parameters()}
+    inputs = (torch.from_numpy(audio), torch.from_numpy(lengths).long(), torch.from_numpy(language_ids).long())
+    with torch.no_grad():
+        trained = _port_module_dtypes(training, lambda: training(*inputs), batch)
+        training_outputs = training(*inputs).outputs
+        serving_outputs = serving(*inputs).outputs
+    assert {name: trained.get(name) for name in expected} == expected
+    for name, value in serving_outputs.items():
+        assert torch.equal(training_outputs[name], value), name
 
 
 def _export_tool():

@@ -16,7 +16,7 @@ from allophant_tpu.ops import masking as jax_masking
 from allophant_tpu.ops.frame_encoder import fused_frame_conv as jax_fused_frame_conv
 from allophant_tpu.ops.oneshot_attention import _oneshot_forward
 from allophant_tpu_torch.ops import activations, attention, decode, masking
-from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv, reference_frame_conv
+from allophant_tpu_torch.ops.frame_encoder import FusedFrameConv, fused_frame_conv, reference_frame_conv
 from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention, reference_oneshot
 
 
@@ -138,6 +138,33 @@ class TestFrameEncoderTwin:
         inputs = [torch.from_numpy(array).to("meta") for array in self._inputs(channels=32, samples=100)]
         with pytest.raises(ValueError):
             fused_frame_conv(*inputs, eps=1e-5, out_dtype=torch.float32)
+
+    def test_backward_matches_jax_custom_vjp(self):
+        """FusedFrameConv's backward differentiates the plain twin, as JAX's
+        custom_vjp differentiates its jnp formulation. That formulation casts
+        the frames and the kernel to bf16 for the dot, so the parameter
+        gradients agree within 1e-2 of each one's largest magnitude (one bf16
+        rounding of the conv operands); the twin's own autograd is matched
+        exactly."""
+        import jax
+
+        audio, kernel, bias, scale, shift = self._inputs(channels=32, samples=5 * 60 + 2)
+        cotangent = np.random.default_rng(3).standard_normal((2, audio.shape[1] // 5 - 1, 32)).astype(np.float32)
+
+        def jax_loss(*parameters):
+            out = jax_fused_frame_conv(jnp.asarray(audio), *parameters, eps=1e-5, out_dtype=jnp.float32)
+            return (out * cotangent).sum()
+
+        expected = jax.grad(jax_loss, argnums=(0, 1, 2, 3))(*map(jnp.asarray, (kernel, bias, scale, shift)))
+        parameters = [torch.from_numpy(array).requires_grad_() for array in (kernel, bias, scale, shift)]
+        out = FusedFrameConv.apply(torch.from_numpy(audio), *parameters, 1e-5, torch.float32)
+        out.backward(torch.from_numpy(cotangent))
+        twin = [tensor.detach().clone().requires_grad_() for tensor in parameters]
+        reference_frame_conv(torch.from_numpy(audio), *twin, 1e-5, torch.float32).backward(torch.from_numpy(cotangent))
+        for name, got, want, exact in zip(("kernel", "bias", "scale", "shift"), parameters, expected, twin):
+            torch.testing.assert_close(got.grad, exact.grad, rtol=0, atol=0)
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.grad.numpy(), want, rtol=0, atol=1e-2 * np.abs(want).max(), err_msg=name)
 
 
 class TestOneshotAttentionTwin:

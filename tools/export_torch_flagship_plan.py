@@ -5,7 +5,7 @@ phonetic indexer and pandas).
     JAX_PLATFORMS=cpu python tools/export_torch_flagship_plan.py
 
 writes ``allophant_tpu_torch/package_data/flagship_plan.json`` (architecture,
-plan) and ``flagship_static.npz`` (composition feature table, allophone
+plan, and the training config's ``nn`` section) and ``flagship_static.npz`` (composition feature table, allophone
 matrices and gather table, and a zero-shot inventory table of the shared phone
 set's size). ``tests/test_torch_estimator.py`` checks that the committed files
 still equal what ``allophant_tpu.demo.build_flagship()`` produces."""
@@ -41,12 +41,13 @@ def flagship_plan_data():
     """(JSON-ready dict, dict of numpy arrays) for the default flagship."""
     from allophant_tpu.demo import build_flagship
 
-    _config, _indexer, built = build_flagship()
+    config, _indexer, built = build_flagship()
     static = {key: np.asarray(value) for key, value in built.static_data.items()}
     static["zero_shot_feature_table"] = zero_shot_feature_table(static["composition_feature_table"])
     document = {
         "architecture": dataclasses.asdict(built.model.acoustic_config),
         "plan": dataclasses.asdict(built.model.plan),
+        "nn": config.nn.to_dict(),
     }
     # Round-trip through JSON so tuples compare as the lists a reader gets back.
     return json.loads(json.dumps(document)), static
