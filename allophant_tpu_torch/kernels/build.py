@@ -88,14 +88,15 @@ _lock = threading.Lock()
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): CUDA_HOME's, else the PATH's."""
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(cuda_home) / "bin" / "nvcc"
+    candidate = Path(cuda_home) / "bin" / name
     if candidate.exists():
         return str(candidate)
-    found = shutil.which("nvcc")
+    found = shutil.which(name)
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found (set CUDA_HOME)")
     return found
 
 
@@ -114,7 +115,7 @@ def build_directory() -> Path:
     return BUILD_ROOT / _source_hash(KERNEL_NAMES)
 
 
-def _library_path(name: str) -> Path:
+def library_path(name: str) -> Path:
     return build_directory() / f"lib{name}.so"
 
 
@@ -123,7 +124,7 @@ def _compile(names: Sequence[str]) -> None:
     temporary file that is renamed into place only when it compiled."""
     directory = build_directory()
     directory.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     jobs = []
     for name in names:
         handle, temporary = tempfile.mkstemp(suffix=".so", dir=directory)
@@ -138,7 +139,7 @@ def _compile(names: Sequence[str]) -> None:
             os.unlink(temporary)
             failures.append(f"{name}.cu (exit {process.returncode}):\n{output}")
             continue
-        os.replace(temporary, _library_path(name))
+        os.replace(temporary, library_path(name))
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
@@ -147,7 +148,7 @@ def build_all() -> float:
     """Builds every kernel library that is missing; returns the seconds spent."""
     start = time.perf_counter()
     with _lock:
-        missing = [name for name in KERNEL_NAMES if not _library_path(name).exists()]
+        missing = [name for name in KERNEL_NAMES if not library_path(name).exists()]
         if missing:
             _compile(missing)
     return time.perf_counter() - start
@@ -160,7 +161,7 @@ def load_kernel(name: str):
         function = _loaded.get(name)
         if function is None:
             library, symbol, argtypes = _SIGNATURES[name]
-            path = _library_path(library)
+            path = library_path(library)
             if not path.exists():
                 _compile([library])
             function = getattr(ctypes.CDLL(str(path)), symbol)

@@ -37,6 +37,7 @@ LOG2E = 1.4426950408889634
 TINY_TOTAL = 1e-30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 64  # every released wav2vec2 / XLS-R encoder
+_ROW_ALIGNMENT = 16  # bytes: the bf16 kernels copy and read 16-byte rows
 
 _MASK32 = 0xFFFFFFFF
 _PHILOX_MULTIPLIERS = (0xD2511F53, 0xCD9E8D57)
@@ -199,6 +200,20 @@ def reference_oneshot_backward(query, key, value, grad, key_bias, seeds: Optiona
     return tuple(_merge_heads(tensor, dtype) for tensor in (d_query, d_key, d_value))
 
 
+def check_row_alignment(name: str, shape, strides, storage_offset: int, item_size: int) -> None:
+    """Raises unless every head row of a [B, T, H*hd] view starts on a 16-byte
+    boundary, as the bf16 kernels' cp.async copies and ldmatrix reads need,
+    given a storage that does (PyTorch's CUDA allocator aligns to 256 bytes):
+    the storage offset and the batch and time strides (of axes longer than 1)
+    must be multiples of 16 bytes. The encoder's q, k and v, column blocks of
+    one fused [B, T, 3*H*hd] projection, pass."""
+    if storage_offset * item_size % _ROW_ALIGNMENT:
+        raise ValueError(f"{name}: a storage offset of {storage_offset} elements is not a multiple of {_ROW_ALIGNMENT} bytes")
+    for axis, label in ((1, "time"), (0, "batch")):
+        if shape[axis] > 1 and strides[axis] * item_size % _ROW_ALIGNMENT:
+            raise ValueError(f"{name}: a {label} stride of {strides[axis]} elements is not a multiple of {_ROW_ALIGNMENT} bytes")
+
+
 def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> None:
     """Raises on what the CUDA kernels do not take."""
     if query.device.type != "cuda":
@@ -213,6 +228,10 @@ def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> None
             raise ValueError(f"{name}: every input must match query in shape, dtype and device")
         if tensor.stride(2) != 1:
             raise ValueError(f"{name} kernel needs a contiguous feature axis")
+        if tensor.dtype == torch.bfloat16:
+            check_row_alignment(name, tensor.shape, tensor.stride(), tensor.storage_offset(), tensor.element_size())
+            if tensor.data_ptr() % _ROW_ALIGNMENT:
+                raise ValueError(f"{name}: the bf16 kernels need a {_ROW_ALIGNMENT}-byte-aligned data pointer")
     if key_bias.shape != (batch, time) or key_bias.dtype != torch.float32 or key_bias.device != query.device:
         raise ValueError(f"{name}: key_bias must be f32 [B, T] on the query's device")
 

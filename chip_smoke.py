@@ -5,11 +5,15 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build of every CUDA kernel from csrc/ (one nvcc per source, in parallel);
+  2. build of every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+     then the count of tensor-core instructions (HMMA, HGMMA) in the SASS
+     (cuobjdump) of K1's and K4's libraries, which must not be 0;
   3. kernels: each kernel against its plain PyTorch twin on the card, in bf16
      and f32, at the serving shapes and beyond (one-shot attention at
-     T = 511, 512, 1536 and 6400 frames with a zero-length and a ragged row),
-     with kernel, twin and library times and the roofline bound;
+     T = 511, 512, 1536 and 6400 frames with a zero-length and a ragged row,
+     and at T = 512 with rows ending on each side of the 64-key tile edges;
+     bit-equal over two calls), with kernel, twin and library times (medians
+     of three rounds) and the roofline bound;
      Beam kernels: the CTC prefix beam search (K3) and its backtrace against
      their plain versions, integer-equal, at the serving shapes (B = 8,
      T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -88,6 +93,13 @@ def cuda_ms(function, iterations: int) -> float:
     return start.elapsed_time(end) / iterations
 
 
+def median_ms(function, iterations: int, rounds: int = 3) -> float:
+    """Median of ``rounds`` cuda_ms readings: one call's reading can stray
+    (SDPA's backward read 0.1792, 0.2106 and 1.2204 ms in three calls at one
+    shape on an H100 80GB HBM3 at 700 W)."""
+    return float(np.median([cuda_ms(function, iterations) for _ in range(rounds)]))
+
+
 def bound_ms(bytes_moved: float, operations: float, dtype_name: str):
     """Least time for the work: the larger of bytes over the memory rate and
     operations over the peak rate for their type."""
@@ -112,6 +124,21 @@ def phase_build() -> float:
     seconds = build_all()
     print(f"build: {seconds:.2f} s into {build_directory().relative_to(HERE)}", flush=True)
     return seconds
+
+
+def phase_tensor_cores() -> None:
+    """Counts the tensor-core instructions (HMMA, HGMMA) in the SASS of the
+    libraries whose bf16 kernels run on them (K1, K4); fails if one has none."""
+    from allophant_tpu_torch.kernels.build import cuda_tool, library_path
+
+    for library in ("oneshot_attention", "attention_backward"):
+        sass = subprocess.run(
+            [cuda_tool("cuobjdump"), "-sass", str(library_path(library))],
+            capture_output=True, text=True, check=True, timeout=120,
+        ).stdout
+        counts = {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
+        print(f"tensor cores: lib{library}.so SASS holds {counts['HMMA']} HMMA and {counts['HGMMA']} HGMMA instructions", flush=True)
+        check(sum(counts.values()) > 0, f"lib{library}.so has no tensor-core instruction")
 
 
 def frame_encoder_inputs(batch: int, samples: int, channels: int = 512):
@@ -158,7 +185,7 @@ def phase_frame_encoder(serve_batch: int, serve_samples: int) -> dict:
         check(got.shape == expected.shape and error <= tolerance, f"frame_encoder {dtype_name} disagrees: {error}")
         if entry is None:
             frames, channels = got.shape[1], got.shape[2]
-            kernel_ms = cuda_ms(lambda: fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype), 20)
+            kernel_ms = median_ms(lambda: fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype), 20)
             plain_ms = cuda_ms(lambda: reference_frame_conv(*inputs, 1e-5, dtype), 5)
             bytes_moved = batch * samples * 4 + 13 * channels * 4 + batch * frames * channels * got.element_size()
             # The conv's multiply-adds alone (10 per output element, f32).
@@ -239,12 +266,14 @@ def phase_attention(serve_lengths, serve_time) -> dict:
     # round the output, whose ulp is up to 2^-7 of it (5e-3; 2^-6, 5e-2).
     # The serving case reads q/k/v as strided views of the fused projection,
     # as the encoder does; the others are contiguous, with a zero-length and a
-    # ragged row.
+    # ragged row. The tile-skip case puts a row's last valid key on each side
+    # of the 64-key tile edges where the bf16 kernel stops.
     cases = (
         [(serve_time, list(serve_lengths), "serve")]
         + [(t, [0, t - 123] + [t] * (batch - 2), "ragged") for t in (512, 1536, 6400)]
         # The smallest bucket (1024 samples) gives 2 frames; 37 is one ragged tile.
         + [(2, [0, 1] + [2] * (batch - 2), "short"), (37, [0, 5] + [37] * (batch - 2), "short")]
+        + [(512, [0, 1, 63, 64, 65, 128, 512 - 123, 512], "tile-skip")]
     )
     for time_steps, row_lengths, label in cases:
         for dtype, rms_tolerance, rtol, scale_tolerance in (
@@ -255,8 +284,10 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                 row_lengths, time_steps, heads, head_dim, dtype, fused_qkv=label == "serve"
             )
             got = oneshot_attention(q, k, v, bias, scale, heads)
+            again = oneshot_attention(q, k, v, bias, scale, heads)
             expected = twin_by_rows(reference_oneshot, q, k, v, bias, scale, heads)
             torch.cuda.synchronize()
+            check(torch.equal(got, again), f"oneshot_attention T={time_steps}: two calls differ")
             valid = torch.arange(time_steps, device="cuda")[None] < lengths[:, None]
             difference = (got.float() - expected.float())[valid].abs()
             twin = expected.float()[valid]
@@ -272,7 +303,7 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                 f" {'strided' if label == 'serve' else 'contiguous'} lengths={lengths.tolist()}:"
                 f" max_abs_err {error:.3e}, twin rms {rms:.3e}, error rms / twin rms {rms_ratio:.3e}"
                 f" (tolerance {rms_tolerance:.0e}), worst share of the per-element limit {worst:.3f}"
-                f" ({rtol:.2e} * |twin| + {scale_tolerance:.0e} * twin rms), finite {finite}",
+                f" ({rtol:.2e} * |twin| + {scale_tolerance:.0e} * twin rms), finite {finite}, two calls bit-equal",
                 flush=True,
             )
             check(
@@ -280,12 +311,12 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                 f"oneshot_attention {dtype_name} T={time_steps} disagrees: rms ratio {rms_ratio}, share {worst}",
             )
             if label == "serve" and dtype == torch.bfloat16:
-                kernel_ms = cuda_ms(lambda: oneshot_attention(q, k, v, bias, scale, heads), 20)
+                kernel_ms = median_ms(lambda: oneshot_attention(q, k, v, bias, scale, heads), 20)
                 plain_ms = cuda_ms(lambda: reference_oneshot(q, k, v, bias, scale, heads), 5)
                 shape4 = (batch, time_steps, heads, head_dim)
                 q4, k4, v4 = (tensor.view(shape4).transpose(1, 2) for tensor in (q, k, v))
                 mask = bias.to(dtype)[:, None, None, :]
-                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 20)
+                library_ms = median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 20)
                 bytes_moved, operations = attention_work(batch, time_steps, heads, head_dim, lengths, 2)
                 bound, bound_by = bound_ms(bytes_moved, operations, dtype_name)
                 print(
@@ -377,7 +408,7 @@ def phase_dropout_mask() -> dict:
     check(abs(keep_rate - keep_prob) <= 5e-3, f"keep rate {keep_rate} is off keep_prob {keep_prob}")
     other = dropout_mask_bits((DROPOUT_SEEDS[0] + 1, DROPOUT_SEEDS[1]), *shape, device="cuda")
     check(not torch.equal(other.view(torch.int32), got.view(torch.int32)), "another seed gave the same draws")
-    kernel_ms = cuda_ms(lambda: dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda"), 20)
+    kernel_ms = median_ms(lambda: dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda"), 20)
     plain_ms = cuda_ms(lambda: reference_dropout_mask_bits(DROPOUT_SEEDS, *shape, device="cuda"), 3)
     bound, bound_by = bound_ms(got.numel() * 4, 0, "float32")
     print(f"time dropout_mask: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
@@ -458,11 +489,11 @@ def time_dropout_forward(q, k, v, bias, lengths, scale, rate, error) -> dict:
     from allophant_tpu_torch.ops.oneshot_attention import oneshot_dropout_attention, reference_oneshot_dropout
 
     batch, time_steps, _ = q.shape
-    kernel_ms = cuda_ms(lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 20)
+    kernel_ms = median_ms(lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 20)
     plain_ms = cuda_ms(lambda: reference_oneshot_dropout(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
     q4, k4, v4 = (tensor.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2) for tensor in (q, k, v))
     mask = bias.to(q.dtype)[:, None, None, :]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, dropout_p=rate), 20)
+    library_ms = median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, dropout_p=rate), 20)
     bytes_moved, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
     bound, bound_by = bound_ms(bytes_moved, operations, str(q.dtype).removeprefix("torch."))
     print(
@@ -489,13 +520,13 @@ def time_backward(q, k, v, grad, bias, lengths, scale, rate, error) -> dict:
     from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention_backward, reference_oneshot_backward
 
     batch, time_steps, _ = q.shape
-    kernel_ms = cuda_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
+    kernel_ms = median_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
     plain_ms = cuda_ms(lambda: reference_oneshot_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
     inputs = [tensor.detach().view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2).requires_grad_() for tensor in (q, k, v)]
     mask = bias.to(q.dtype)[:, None, None, :]
     out = F.scaled_dot_product_attention(*inputs, attn_mask=mask, dropout_p=rate)
     grad4 = grad.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, grad4, retain_graph=True), 10)
+    library_ms = median_ms(lambda: torch.autograd.grad(out, inputs, grad4, retain_graph=True), 10)
     _, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
     # q, k, v, g and the bias read, dq, dk, dv written; five products per
     # (query, key) pair (s, dp, dv, dq, dk) against the forward's two.
@@ -615,9 +646,9 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
             flush=True,
         )
         if label.startswith("stacked"):
-            search_ms = cuda_ms(lambda: beam_search_cuda(emissions, lengths, beams), 20)
+            search_ms = median_ms(lambda: beam_search_cuda(emissions, lengths, beams), 20)
             search_plain_ms = cuda_ms(lambda: beam_search_padded(emissions, lengths, beams), 1)
-            backtrace_ms = cuda_ms(lambda: backtrace_cuda(got[0], got[1], lengths), 20)
+            backtrace_ms = median_ms(lambda: backtrace_cuda(got[0], got[1], lengths), 20)
             backtrace_plain_ms = cuda_ms(lambda: backtrace_beams_device(got[0], got[1], lengths), 2)
             bytes_moved, operations = beam_work(batch, time_steps, classes, beams, lengths)
             # The backtrace: parents and emitted read at valid steps, lengths
@@ -1170,6 +1201,7 @@ def main() -> int:
     overall = time.perf_counter()
     phase_card()
     phase_build()
+    phase_tensor_cores()
     set_float32_precision("highest")
     launches = dict.fromkeys(
         ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),

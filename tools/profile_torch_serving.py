@@ -32,7 +32,7 @@ BEAM_WIDTH = 4
 GROUPS = (
     ("beam_search_kernel", "beam search (K3)"),
     ("beam_backtrace_kernel", "beam backtrace"),
-    ("oneshot_attention_kernel", "attention (K1)"),
+    ("oneshot_attention", "attention (K1)"),
     ("frame_encoder_kernel", "frame encoder (K2)"),
     ("cudnn", "convolution (cuDNN)"),
     ("conv", "convolution (cuDNN)"),

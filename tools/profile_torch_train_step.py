@@ -30,7 +30,7 @@ sys.path.insert(0, str(ROOT))
 GROUPS = (
     ("attention_backward", "attention backward (K4)"),
     ("attention_dropout_kernel", "attention dropout (K5)"),
-    ("oneshot_attention_kernel", "attention (K1)"),
+    ("oneshot_attention", "attention (K1)"),
     ("frame_encoder_kernel", "frame encoder (K2)"),
     ("ctc", "CTC loss"),
     ("multi_tensor_apply", "optimizer and clipping (foreach)"),
