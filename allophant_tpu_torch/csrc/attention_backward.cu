@@ -61,7 +61,9 @@
 // 2m + 1 need the two halves of the same call, for both rows. They share it
 // by shuffle: the even lane draws row g's call, the odd lane row g + 8's, and
 // one __shfl_xor_sync(1) of the 32 packed keep bits (four per n8 tile) gives
-// each lane the half of its partner's call that it needs. In (b), rows are
+// each lane the half of its partner's call that it needs (this mapping is
+// philox::query_tile_keep_bits, which K5's bf16 forward shares, so the two
+// draw one mask). In (b), rows are
 // keys and columns queries: the four lanes of equal c whose keys g lie in one
 // quad (g = 4a .. 4a + 3) need the four calls (query 2c or 2c + 1) x (key quad
 // a or a + 2); lane g % 4 draws one of them, and four shuffles among those
@@ -514,38 +516,6 @@ using bf16 = __nv_bfloat16;
 // memory for pass 2 (8 KB, T <= 1,024); later tiles draw them again.
 constexpr int kCachedMaskTiles = 16;
 
-__device__ __forceinline__ uint32_t keep_nibble(const uint4& draws, uint32_t threshold) {
-  return static_cast<uint32_t>(draws.x < threshold) | static_cast<uint32_t>(draws.y < threshold) << 1 |
-         static_cast<uint32_t>(draws.z < threshold) << 2 | static_cast<uint32_t>(draws.w < threshold) << 3;
-}
-
-// Kernel (a)'s keep bits of a lane's 32 accumulator entries of one 16 x 64
-// score tile (bit 4j + e for entry e of n8 tile j): rows `row` (e < 2) and
-// row + 8, key columns key_start + 8j + 2c + (e & 1). Lanes c = 2m, 2m + 1
-// share each call: the even one draws row `row`, the odd one row + 8.
-__device__ __forceinline__ uint32_t query_tile_keep_bits(const Dropout& dropout, int batch_head, int row,
-                                                         int key_start, int lane) {
-  const int column = lane & 3;
-  const int odd = column & 1;
-  uint32_t own = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head, row + 8 * odd,
-                                              key_start / 4 + 2 * j + (column >> 1));
-    own |= keep_nibble(draws, dropout.threshold) << (4 * j);
-  }
-  const uint32_t partner = __shfl_xor_sync(0xffffffffu, own, 1);
-  const uint32_t low_row = odd ? partner : own;
-  const uint32_t high_row = odd ? own : partner;
-  uint32_t kept = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int shift = 4 * j + 2 * odd;  // words 2 * odd, 2 * odd + 1 of each call
-    kept |= (((low_row >> shift) & 3u) | ((high_row >> shift) & 3u) << 2) << (4 * j);
-  }
-  return kept;
-}
-
 // Kernel (b)'s keep bits of a lane's 32 accumulator entries of one 16 x 64
 // transposed score tile (bit 4j + e for entry e of n8 tile j): keys
 // warp_key_start + g (e < 2) and + g + 8, queries query_start + 8j + 2c +
@@ -563,7 +533,7 @@ __device__ __forceinline__ uint32_t key_tile_keep_bits(const Dropout& dropout, i
   for (int j = 0; j < 8; ++j) {
     const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head,
                                               query_start + 8 * j + 2 * column + (word & 1), quad);
-    own |= keep_nibble(draws, dropout.threshold) << (4 * j);
+    own |= philox::keep_nibble(draws, dropout.threshold) << (4 * j);
   }
   uint32_t kept = 0;
 #pragma unroll
@@ -692,7 +662,8 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
       if (step >= key_tiles && tile < kCachedMaskTiles) {
         kept = cached_keep_bits[tile][threadIdx.x];
       } else {
-        kept = query_tile_keep_bits(dropout, batch_head, row, key_start, lane);
+        kept = philox::query_tile_keep_bits(dropout.seed0, dropout.seed1, dropout.threshold, batch_head, row,
+                                            key_start, lane);
         if (step < key_tiles && tile < kCachedMaskTiles) cached_keep_bits[tile][threadIdx.x] = kept;
       }
     }

@@ -1,5 +1,6 @@
 // Tensor-core building blocks of the bf16 attention kernels (K1's forward in
-// oneshot_attention.cu, K4's backward in attention_backward.cu): 64-row bf16
+// oneshot_attention.cu, K5's forward with dropout in attention_dropout.cu,
+// K4's backward in attention_backward.cu): 64-row bf16
 // tiles of one head in shared memory, filled by 16-byte cp.async, read into
 // mma.sync.m16n8k16 fragments by ldmatrix.
 //

@@ -1,7 +1,9 @@
 // Philox4x32-10 (Salmon, Moraes, Dror and Shaw, "Parallel random numbers: as
 // easy as 1, 2, 3", SC'11; the Random123 constants), shared by the attention
 // dropout kernels so that the forward (attention_dropout.cu), the backward
-// (attention_backward.cu) and the mask kernel draw identical bits.
+// (attention_backward.cu) and the mask kernel draw identical bits, with the
+// mapping of the draws onto the tensor-core accumulator fragments that the
+// bf16 forward and the backward's query kernel share.
 //
 // The attention-dropout mask is a pure function of two int32 seeds and
 // (batch, head, query row, key column):
@@ -48,6 +50,45 @@ __device__ __forceinline__ uint4 dropout_draws(uint32_t seed0, uint32_t seed1, i
 
 __device__ __forceinline__ uint32_t word(const uint4& draws, int index) {
   return index == 0 ? draws.x : index == 1 ? draws.y : index == 2 ? draws.z : draws.w;
+}
+
+// The keep bits of one call's four draws, word w in bit w.
+__device__ __forceinline__ uint32_t keep_nibble(const uint4& draws, uint32_t threshold) {
+  return static_cast<uint32_t>(draws.x < threshold) | static_cast<uint32_t>(draws.y < threshold) << 1 |
+         static_cast<uint32_t>(draws.z < threshold) << 2 | static_cast<uint32_t>(draws.w < threshold) << 3;
+}
+
+// The keep bits of a lane's 32 mma.m16n8k16 accumulator entries of one
+// 16 x 64 score tile whose rows are queries (bit 4j + e for entry e of n8
+// tile j): query rows `row` (e < 2) and row + 8, key columns key_start + 8j +
+// 2c + (e & 1), for lane = 4g + c. One call covers four key columns of one
+// row, and a lane holds column pairs of two rows, so lanes c = 2m and 2m + 1
+// need the two halves of the same calls: the even lane draws row `row`, the
+// odd one row + 8, and one __shfl_xor_sync(1) of the 32 packed keep bits
+// gives each lane the half of its partner's calls that it needs. No call is
+// computed twice. The attention-dropout forward (K5) and the query kernel of
+// its backward (K4) both take their mask from here. Every lane of the warp
+// must call it.
+__device__ __forceinline__ uint32_t query_tile_keep_bits(uint32_t seed0, uint32_t seed1, uint32_t threshold,
+                                                         int batch_head, int row, int key_start, int lane) {
+  const int column = lane & 3;
+  const int odd = column & 1;
+  uint32_t own = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint4 draws = dropout_draws(seed0, seed1, batch_head, row + 8 * odd, key_start / 4 + 2 * j + (column >> 1));
+    own |= keep_nibble(draws, threshold) << (4 * j);
+  }
+  const uint32_t partner = __shfl_xor_sync(0xffffffffu, own, 1);
+  const uint32_t low_row = odd ? partner : own;
+  const uint32_t high_row = odd ? own : partner;
+  uint32_t kept = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int shift = 4 * j + 2 * odd;  // words 2 * odd, 2 * odd + 1 of each call
+    kept |= (((low_row >> shift) & 3u) | ((high_row >> shift) & 3u) << 2) << (4 * j);
+  }
+  return kept;
 }
 
 }  // namespace philox

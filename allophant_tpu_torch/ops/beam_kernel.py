@@ -1,18 +1,21 @@
 """The whole CTC prefix beam search in one CUDA launch, and the backtrace of
 its backpointers in another (counterpart of ``allophant_tpu/ops/beam_kernel.py``).
 
-``beam_search_cuda`` launches ``csrc/beam_search.cu:beam_search_kernel`` and
-``backtrace_cuda`` launches ``beam_backtrace_kernel`` from the same source.
-Both take CUDA tensors only; ``ops/decode.py`` routes CPU tensors to the plain
-versions ``beam_search_padded`` and ``backtrace_beams_device``.
+``beam_search_cuda`` launches one of the two search kernels of
+``csrc/beam_search.cu``, which its C entry point picks by shape alone
+(``beam_search_warp_kernel`` for K <= 8 and C <= 64, ``beam_search_kernel``
+for wider rows), and ``backtrace_cuda`` launches ``beam_backtrace_kernel``
+from the same source. Both take CUDA tensors only; ``ops/decode.py`` routes
+CPU tensors to the plain versions ``beam_search_padded`` and
+``backtrace_beams_device``.
 
 The TPU kernel holds a whole [b, T, C_pad] emission block in VMEM, so a plan
 (``plan_beam_kernel``) picks how many batch rows fit and the caller falls
-back to the ``lax.scan`` search when none does. The CUDA kernel gives each
-batch row one thread block and streams the emissions one time step at a time,
-so it takes every T and every class count up to ``MAX_CLASSES``: there is no
-plan and no fallback. Its outputs are the unpacked (parents, emitted, scores)
-contract of ``beam_search_padded``."""
+back to the ``lax.scan`` search when none does. The CUDA kernels give each
+batch row one warp or one thread block and stream the emissions one time step
+at a time, so they take every T and every class count up to ``MAX_CLASSES``:
+there is no plan and no fallback. Their outputs are the unpacked (parents,
+emitted, scores) contract of ``beam_search_padded``."""
 
 from __future__ import annotations
 

@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from csrc/ (one nvcc per source, in parallel),
      then the count of tensor-core instructions (HMMA, HGMMA) in the SASS
-     (cuobjdump) of K1's and K4's libraries, which must not be 0;
+     (cuobjdump) of K1's, K5's and K4's libraries, which must not be 0;
   3. kernels: each kernel against its plain PyTorch twin on the card, in bf16
      and f32, at the serving shapes and beyond (one-shot attention at
      T = 511, 512, 1536 and 6400 frames with a zero-length and a ragged row,
@@ -17,13 +17,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      Beam kernels: the CTC prefix beam search (K3) and its backtrace against
      their plain versions, integer-equal, at the serving shapes (B = 8,
      T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
-     request, a 2400-class inventory, T = 2 and 37, K = 1 and 8, the
-     widest class count (32767) and a blank index of 3;
+     request, a 2400-class inventory, T = 2 and 37, K = 1, 2 and 8, the
+     widest class count (32767), a blank index of 3, exact ties (uniform and
+     quantised emissions) and each side of the warp kernel's limits, every
+     case naming the kernel its shape routes to;
      Training kernels: the attention-dropout forward (K5) and the fused
      attention backward (K4, with dropout and without) against their twins
      in bf16 and f32 at the training shape (B = 8, T = 499, H = 16, strided
-     q/k/v) and at T = 512, 1535 and 2 with a ragged and a zero-length row,
-     K4 also against autograd of the forward twins, each bit-equal over two
+     q/k/v), at T = 512, 1535 and 2 with a ragged and a zero-length row and
+     at T = 512 with rows ending on each side of the 64-key tile edges, K4
+     also against autograd of the forward twins, each bit-equal over two
      calls; the dropout-mask kernel (K6) integer-equal to its twin;
   4. serve: the full-width flagship (XLS-R 300M + hierarchical head, seeded
      random weights) under the default "mixed" preset answers three requests
@@ -49,6 +52,7 @@ device is present or the port's package is not beside this script."""
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -128,10 +132,11 @@ def phase_build() -> float:
 
 def phase_tensor_cores() -> None:
     """Counts the tensor-core instructions (HMMA, HGMMA) in the SASS of the
-    libraries whose bf16 kernels run on them (K1, K4); fails if one has none."""
+    libraries whose bf16 kernels run on them (K1, K5, K4); fails if one has
+    none."""
     from allophant_tpu_torch.kernels.build import cuda_tool, library_path
 
-    for library in ("oneshot_attention", "attention_backward"):
+    for library in ("oneshot_attention", "attention_dropout", "attention_backward"):
         sass = subprocess.run(
             [cuda_tool("cuobjdump"), "-sass", str(library_path(library))],
             capture_output=True, text=True, check=True, timeout=120,
@@ -345,10 +350,13 @@ TRAIN_BATCH, TRAIN_TIME, HEADS, HEAD_DIM = 8, 499, 16, 64
 # (time steps, row lengths, label): the training shape reads q/k/v as strided
 # views of the fused projection, as the encoder does; the others are
 # contiguous, with a zero-length and a ragged row. T = 2 is one ragged tile.
+# The tile-skip case puts a row's last valid key on each side of the 64-key
+# tile edges where the bf16 kernels stop.
 DROPOUT_CASES = (
     [(TRAIN_TIME, [TRAIN_TIME] * TRAIN_BATCH, "train")]
     + [(t, [0, t - 123] + [t] * (TRAIN_BATCH - 2), "ragged") for t in (512, 1535)]
     + [(2, [0, 1] + [2] * (TRAIN_BATCH - 2), "short")]
+    + [(512, [0, 1, 63, 64, 65, 128, 512 - 123, 512], "tile-skip")]
 )
 # Limits in the style of K1's, both scaled by RMS(twin): RMS(kernel - twin) <=
 # rms_tolerance * RMS(twin), and per element |kernel - twin| <= rtol * |twin| +
@@ -552,11 +560,27 @@ def time_backward(q, k, v, grad, bias, lengths, scale, rate, error) -> dict:
     }
 
 
-def beam_inputs(batch, time_steps, classes, lengths, seed, scale=2.0):
-    """Seeded log-softmax emissions [B, T, C] f32 and int32 lengths on the card."""
+def beam_inputs(batch, time_steps, classes, lengths, seed, scale=2.0, quantised=False):
+    """Seeded log-softmax emissions [B, T, C] f32 and int32 lengths on the card.
+    Scale 0 makes every emission of a step equal; ``quantised`` rounds the
+    logits to integers, so a step's emissions take a few levels: both make
+    exact ties between candidates."""
     generator = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn(batch, time_steps, classes, generator=generator, device="cuda") * scale
+    if quantised:
+        logits = logits.round()
     return torch.log_softmax(logits, dim=-1), torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def beam_route(classes: int, beams: int) -> str:
+    """Which search kernel the library's C entry point launches for this
+    shape (its own beam_search_route)."""
+    from allophant_tpu_torch.kernels.build import library_path
+
+    route = ctypes.CDLL(str(library_path("beam_search"))).beam_search_route
+    route.argtypes = [ctypes.c_int, ctypes.c_int]
+    route.restype = ctypes.c_int
+    return ("block kernel", "warp kernel, one candidate a lane", "warp kernel, sorted lists")[route(classes, beams)]
 
 
 def valid_steps(lengths, time_steps) -> int:
@@ -594,10 +618,10 @@ def check_search(label, got, expected, collected, expected_collected):
 
 def phase_beam_kernels(serve_lengths, serve_time) -> list:
     """K3 (beam_search) and the backtrace kernel against their plain versions
-    on the card; returns their JSON entries, timed at the two launches a
-    serving request of the first shape makes: the 36 four-class attribute
-    heads stacked as [36·8, 511, 4] and the phone and phoneme heads as
-    [2·8, 511, 40]."""
+    on the card, each case naming the search kernel its shape routes to;
+    returns their JSON entries, timed at the two launches a serving request
+    of the first shape makes: the 36 four-class attribute heads stacked as
+    [36·8, 511, 4] and the phone and phoneme heads as [2·8, 511, 40]."""
     from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
     from allophant_tpu_torch.ops.decode import backtrace_beams_device, beam_search_padded
 
@@ -619,12 +643,26 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
         ("widest classes", 3, 37, 32767, 4, [0, 23, 37], 2.0, 0),
         # A blank other than 0: the stay column, the merges that skip it.
         ("blank 3", 8, serve_time, 40, 4, serve, 0.5, 3),
+        ("blank 3 C=4", 8, serve_time, 4, 4, serve, 0.5, 3),
+        ("K=2", 8, serve_time, 40, 2, serve, 0.5, 0),
+        # Exact ties: every emission of a step equal (scale 0), or logits
+        # rounded to a few levels; the winners must follow the twin's order.
+        ("uniform emissions C=4", 8, serve_time, 4, 4, serve, 0.0, 0),
+        ("uniform emissions C=40", 8, serve_time, 40, 4, serve, 0.0, 0),
+        ("quantised emissions C=4", 8, serve_time, 4, 4, serve, 1.0, 0),
+        ("quantised emissions C=40", 8, serve_time, 40, 4, serve, 1.0, 0),
+        # Each side of the warp kernel's limits (K <= 8, C <= 64).
+        ("warp limit, inside", 8, serve_time, 64, 8, serve, 0.5, 0),
+        ("warp limit, C outside", 8, serve_time, 65, 8, serve, 0.5, 0),
+        ("warp limit, K outside", 8, serve_time, 40, 9, serve, 0.5, 0),
     ]
     # One request's work: both launches of each kernel, summed.
     totals = dict.fromkeys(("ms", "plain_ms", "bytes", "operations", "backtrace_ms", "backtrace_plain_ms", "backtrace_bytes"), 0.0)
     search_error = backtrace_error = 0.0
     for index, (label, batch, time_steps, classes, beams, lengths, scale, blank) in enumerate(cases):
-        emissions, lengths = beam_inputs(batch, time_steps, classes, lengths, 100 + index, scale)
+        quantised = label.startswith("quantised")
+        emissions, lengths = beam_inputs(batch, time_steps, classes, lengths, 100 + index, scale, quantised)
+        route = beam_route(classes, beams)
         got = beam_search_cuda(emissions, lengths, beams, blank)
         expected = beam_search_padded(emissions, lengths, beams, blank)
         collected = backtrace_cuda(got[0], got[1], lengths)
@@ -640,8 +678,8 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
         search_error = max(search_error, absolute)
         live = int((got[2] > -5e29).sum().item())
         print(
-            f"kernel beam_search B={batch} T={time_steps} C={classes} K={beams} blank={blank} {label}: parents, emitted and"
-            f" collected integer-equal; scores not bit-equal {not_bit_equal} of {got[2].numel()}"
+            f"kernel beam_search B={batch} T={time_steps} C={classes} K={beams} blank={blank} {label} ({route}): parents,"
+            f" emitted and collected integer-equal; scores not bit-equal {not_bit_equal} of {got[2].numel()}"
             f" (largest relative difference {relative:.3e}, tolerance 1e-5), live slots {live}",
             flush=True,
         )
@@ -657,8 +695,9 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
             for key, value in zip(totals, (search_ms, search_plain_ms, bytes_moved, operations, backtrace_ms, backtrace_plain_ms, backtrace_bytes)):
                 totals[key] += value
             print(
-                f"time beam_search {label} B={batch} T={time_steps} C={classes} K={beams}: kernel {search_ms:.4f} ms,"
-                f" twin {search_plain_ms:.4f} ms, bound {bound_ms(bytes_moved, operations, 'float32')[0]:.6f} ms;"
+                f"time beam_search {label} B={batch} T={time_steps} C={classes} K={beams} ({route}): kernel {search_ms:.4f} ms"
+                f" ({search_ms * 1e3 / time_steps:.3f} us per step), twin {search_plain_ms:.4f} ms,"
+                f" bound {bound_ms(bytes_moved, operations, 'float32')[0]:.6f} ms;"
                 f" backtrace kernel {backtrace_ms:.4f} ms, twin {backtrace_plain_ms:.4f} ms,"
                 f" bound {bound_ms(backtrace_bytes, 0, 'float32')[0]:.6f} ms",
                 flush=True,

@@ -1,9 +1,11 @@
-"""What the port's bf16 tensor-core attention kernels (K1 forward, K4 backward)
-rely on, checked on the CPU through their plain twins and the JAX package:
+"""What the port's bf16 tensor-core attention kernels (K1 forward, K5 forward
+with dropout, K4 backward) rely on, checked on the CPU through their plain
+twins and the JAX package:
 
 - the tile skip: a block stops after the 64-key tile of its batch row's last
   valid key, since every key after it carries a -1e9 bias and its
-  exponential is exactly 0 in f32; a zero-length row visits every key;
+  exponential is exactly 0 in f32, so it adds nothing to the total and, kept
+  or dropped, nothing to P.V; a zero-length row visits every key;
 - the layout rule of the wrappers: cp.async and ldmatrix move 16-byte rows,
   so every head row of a bf16 input must start on a 16-byte boundary, which
   the encoder's strided q/k/v views of one fused projection do.
@@ -19,7 +21,17 @@ import torch
 import jax.numpy as jnp
 
 from allophant_tpu.ops.oneshot_attention import _reference_bthd
-from allophant_tpu_torch.ops.oneshot_attention import NEG_INF, _exponentials, check_row_alignment, reference_oneshot
+from allophant_tpu_torch.ops.oneshot_attention import (
+    NEG_INF,
+    _exponentials,
+    _keep_mask,
+    _keep_probability,
+    _merge_heads,
+    _split_heads,
+    check_row_alignment,
+    reference_oneshot,
+    reference_oneshot_dropout,
+)
 
 TIME, HEADS, HEAD_DIM, KEY_TILE = 512, 2, 64, 64
 SCALE = HEAD_DIM**-0.5
@@ -66,6 +78,43 @@ def test_a_zero_length_row_keeps_every_key(dtype):
     assert bool((exponentials[..., KEY_TILE:] > 0.0).all())
     whole = reference_oneshot(q, k, v, bias, SCALE, HEADS)
     first_tile = reference_oneshot(q, k[:, :KEY_TILE], v[:, :KEY_TILE], bias[:, :KEY_TILE], SCALE, HEADS)
+    assert (whole - first_tile).abs().max().item() > 0.1
+
+
+SEEDS, RATE = (1_234_567, -89_101_112), 0.1
+
+
+def _dropout_twin_over_keys(q, k, v, bias, keys: int) -> torch.Tensor:
+    """The dropout twin's arithmetic over the first ``keys`` keys only, with
+    the Philox mask of the whole row cut to the same columns: what the bf16
+    K5 computes when it stops after the tile of the last valid key."""
+    exponentials, total = _exponentials(q, k[:, :keys], bias[:, :keys], SCALE, HEADS)
+    keep = _keep_mask(SEEDS, 1, HEADS, TIME, RATE, "cpu")[..., :keys]
+    weights = torch.where(keep, exponentials, 0.0).to(v.dtype).float()
+    out = weights @ _split_heads(v[:, :keys], HEADS) / (total * _keep_probability(RATE))
+    return _merge_heads(out, q.dtype)
+
+
+@DTYPES
+@pytest.mark.parametrize("length", [1, 63, 64, 65, TIME - 123])
+def test_dropout_keys_past_the_last_valid_tile_change_nothing(length, dtype):
+    """The total sums the unmasked exponentials and the kept ones go into
+    P.V; past the last valid key's tile both are exactly 0, so the twin cut
+    there equals the whole twin."""
+    q, k, v, bias = _inputs(length, dtype, seed=2)
+    cut = math.ceil(length / KEY_TILE) * KEY_TILE
+    whole = reference_oneshot_dropout(q, k, v, bias, SEEDS, SCALE, HEADS, RATE)
+    assert torch.equal(_dropout_twin_over_keys(q, k, v, bias, TIME), whole)  # the helper is the twin
+    cut_short = _dropout_twin_over_keys(q, k, v, bias, cut)
+    torch.testing.assert_close(cut_short, whole, rtol=1e-6, atol=1e-6 * whole.abs().max().item())
+
+
+@DTYPES
+def test_dropout_zero_length_row_keeps_every_key(dtype):
+    q, k, v, bias = _inputs(0, dtype, seed=3)
+    whole = reference_oneshot_dropout(q, k, v, bias, SEEDS, SCALE, HEADS, RATE)
+    first_tile = _dropout_twin_over_keys(q, k, v, bias, KEY_TILE)
+    assert bool(torch.isfinite(whole).all())
     assert (whole - first_tile).abs().max().item() > 0.1
 
 

@@ -23,8 +23,13 @@ from allophant_tpu_torch.ops.beam_kernel import MAX_CLASSES, backtrace_cuda, bea
 SCORE_ATOL = 1e-4
 
 
-def _log_probs(batch, time, classes, seed, scale=2.0):
+def _log_probs(batch, time, classes, seed, scale=2.0, quantised=False):
+    """Seeded log-softmax emissions. Scale 0 makes every emission of a step
+    equal; ``quantised`` rounds the logits to integers, so a step's emissions
+    take a few levels: both make exact ties between candidates."""
     logits = np.random.default_rng(seed).standard_normal((batch, time, classes)).astype(np.float32) * scale
+    if quantised:
+        logits = np.round(logits)
     return np.array(jax.nn.log_softmax(jnp.asarray(logits), axis=-1))
 
 
@@ -41,23 +46,32 @@ def _assert_search_equal(expected, got):
     np.testing.assert_allclose(got[2], np.asarray(expected[2]), atol=SCORE_ATOL)
 
 
-# (batch, time, classes, beam_width, lengths, seed, scale, blank_index, pallas)
+# (batch, time, classes, beam_width, lengths, seed, scale, blank_index, pallas,
+# quantised)
 SEARCH_CASES = {
-    "ragged": (4, 48, 12, 4, [48, 31, 9, 1], 0, 2.0, 0, True),
+    "ragged": (4, 48, 12, 4, [48, 31, 9, 1], 0, 2.0, 0, True, False),
     # Near-uniform emissions maximise prefix merges (the hash-match path).
-    "near-uniform-merging": (4, 32, 5, 4, [32, 32, 17, 32], 1, 0.3, 0, True),
-    "zero-length-rows": (2, 16, 7, 3, [0, 16], 2, 2.0, 0, True),
-    "k1": (3, 24, 9, 1, [24, 11, 0], 3, 1.0, 0, True),
-    "k8": (2, 24, 6, 8, [24, 19], 4, 0.5, 0, True),
+    "near-uniform-merging": (4, 32, 5, 4, [32, 32, 17, 32], 1, 0.3, 0, True, False),
+    "zero-length-rows": (2, 16, 7, 3, [0, 16], 2, 2.0, 0, True, False),
+    "k1": (3, 24, 9, 1, [24, 11, 0], 3, 1.0, 0, True, False),
+    "k2": (4, 24, 9, 2, [24, 17, 1, 24], 6, 0.5, 0, True, False),
+    "k8": (2, 24, 6, 8, [24, 19], 4, 0.5, 0, True, False),
     # The JAX fused serving path fixes the blank at 0; its scan takes any.
-    "blank-3": (3, 30, 7, 4, [30, 22, 5], 5, 0.5, 3, False),
+    "blank-3": (3, 30, 7, 4, [30, 22, 5], 5, 0.5, 3, False, False),
+    # Exact ties, the order a selection must reproduce (value descending,
+    # ties to the lowest k-major lane k * C + c): every emission of a step
+    # equal, so every extension of a beam ties; and logits on a few levels.
+    "uniform-ties": (4, 24, 5, 4, [24, 24, 9, 1], 7, 0.0, 0, True, False),
+    "uniform-ties-40": (2, 16, 40, 4, [16, 11], 8, 0.0, 0, True, False),
+    "quantised-ties": (4, 32, 6, 4, [32, 27, 32, 0], 9, 1.0, 0, True, True),
+    "quantised-ties-k2": (4, 32, 9, 2, [32, 20, 5, 32], 10, 1.0, 0, True, True),
 }
 
 
 @pytest.mark.parametrize("case", list(SEARCH_CASES))
 def test_search_matches_jax_scan_and_pallas_kernel(case):
-    batch, time, classes, beam_width, lengths, seed, scale, blank_index, pallas = SEARCH_CASES[case]
-    log_probs = _log_probs(batch, time, classes, seed, scale)
+    batch, time, classes, beam_width, lengths, seed, scale, blank_index, pallas, quantised = SEARCH_CASES[case]
+    log_probs = _log_probs(batch, time, classes, seed, scale, quantised)
     got = _port_search(log_probs, lengths, beam_width, blank_index)
     assert got[0].shape == got[1].shape == (time, batch, beam_width)
     assert got[0].dtype == got[1].dtype == np.int32

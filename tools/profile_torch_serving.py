@@ -30,7 +30,7 @@ REPEATS = 3
 BEAM_WIDTH = 4
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
-    ("beam_search_kernel", "beam search (K3)"),
+    ("beam_search", "beam search (K3)"),
     ("beam_backtrace_kernel", "beam backtrace"),
     ("oneshot_attention", "attention (K1)"),
     ("frame_encoder_kernel", "frame encoder (K2)"),

@@ -29,7 +29,7 @@ sys.path.insert(0, str(ROOT))
 # Kernel-name fragments -> group, first match wins.
 GROUPS = (
     ("attention_backward", "attention backward (K4)"),
-    ("attention_dropout_kernel", "attention dropout (K5)"),
+    ("attention_dropout", "attention dropout (K5)"),
     ("oneshot_attention", "attention (K1)"),
     ("frame_encoder_kernel", "frame encoder (K2)"),
     ("ctc", "CTC loss"),
