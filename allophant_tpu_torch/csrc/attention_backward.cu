@@ -116,28 +116,31 @@ __device__ __forceinline__ int run_column(int lane_col, int j) {
   return (j >> 2) * 32 + lane_col * 4 + (j & 3);
 }
 
-// Loads a [kBlock][HD] tile of a [B, T, H*hd] tensor (rows past `time` zero)
-// into shared memory with row stride HD + 1.
+// Loads a [kBlock][HD] tile of a [B, T, H*hd] tensor (rows past `time` and
+// columns past the head's own width `columns` zero) into shared memory with
+// row stride HD + 1.
 template <int HD>
 __device__ __forceinline__ void load_tile(float* tile, const float* base, long long time_stride, int start,
-                                          int time) {
+                                          int time, int columns) {
   for (int index = threadIdx.x; index < kBlock * HD; index += kThreads) {
     const int row = index / HD;
     const int col = index % HD;
     const int t = start + row;
-    tile[row * (HD + 1) + col] = t < time ? base[t * time_stride + col] : 0.0f;
+    tile[row * (HD + 1) + col] = t < time && col < columns ? base[t * time_stride + col] : 0.0f;
   }
 }
 
 // Kernel (a): row statistics and dq.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 attention_backward_query_kernel(const float* __restrict__ query, const float* __restrict__ key,
                                 const float* __restrict__ value, const float* __restrict__ grad,
                                 const float* __restrict__ key_bias, float* __restrict__ d_query,
-                                float* __restrict__ stats, int batch_size, int time, int heads,
+                                float* __restrict__ stats, int batch_size, int time, int heads, int head_columns,
                                 Strides strides, float score_scale, float bias_scale, float sm_scale,
                                 Dropout dropout) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
   constexpr int kOutCols = HD / 8;
   constexpr int kStride = HD + 1;
   constexpr int kPStride = kBlock + 1;
@@ -157,13 +160,13 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
-  const int head_offset = head * HD;
+  const int head_offset = head * columns;
 
   const float* k_base = key + batch * strides.k_batch + head_offset;
   const float* v_base = value + batch * strides.v_batch + head_offset;
   const float* bias_base = key_bias + static_cast<long long>(batch) * time;
-  load_tile<HD>(q_tile, query + batch * strides.q_batch + head_offset, strides.q_time, query_start, time);
-  load_tile<HD>(g_tile, grad + batch * strides.g_batch + head_offset, strides.g_time, query_start, time);
+  load_tile<HD>(q_tile, query + batch * strides.q_batch + head_offset, strides.q_time, query_start, time, columns);
+  load_tile<HD>(g_tile, grad + batch * strides.g_batch + head_offset, strides.g_time, query_start, time, columns);
 
   float row_max[kRowsPerThread], row_sum[kRowsPerThread], row_dot[kRowsPerThread];
 #pragma unroll
@@ -224,8 +227,8 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
 
   auto load_keys = [&](int key_start) {
     __syncthreads();
-    load_tile<HD>(k_tile, k_base, strides.k_time, key_start, time);
-    load_tile<HD>(v_tile, v_base, strides.v_time, key_start, time);
+    load_tile<HD>(k_tile, k_base, strides.k_time, key_start, time, columns);
+    load_tile<HD>(v_tile, v_base, strides.v_time, key_start, time, columns);
     for (int index = tid; index < kBlock; index += kThreads) {
       const int t = key_start + index;
       bias_tile[index] = t < time ? bias_base[t] * bias_scale : -INFINITY;
@@ -313,7 +316,8 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
     const int t = query_start + row_group * kRowsPerThread + i;
     if (t >= time) continue;
 #pragma unroll
-    for (int j = 0; j < kOutCols; ++j) dq_base[t * strides.dq_time + lane_col + 8 * j] = acc[i][j] * sm_scale;
+    for (int j = 0; j < kOutCols; ++j)
+      if (lane_col + 8 * j < columns) dq_base[t * strides.dq_time + lane_col + 8 * j] = acc[i][j] * sm_scale;
     if (lane_col == 0) {
       stats_row[t] = row_max[i];
       stats_row[plane + t] = row_sum[i];
@@ -323,14 +327,16 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
 }
 
 // Kernel (b): dk and dv of one 64-key tile over every query tile.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 attention_backward_key_kernel(const float* __restrict__ query, const float* __restrict__ key,
                               const float* __restrict__ value, const float* __restrict__ grad,
                               const float* __restrict__ key_bias, const float* __restrict__ stats,
                               float* __restrict__ d_key, float* __restrict__ d_value, int batch_size, int time,
-                              int heads, Strides strides, float score_scale, float bias_scale,
+                              int heads, int head_columns, Strides strides, float score_scale, float bias_scale,
                               float sm_scale, Dropout dropout) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
   constexpr int kOutCols = HD / 8;
   constexpr int kStride = HD + 1;
   constexpr int kPStride = kBlock + 1;
@@ -354,13 +360,13 @@ attention_backward_key_kernel(const float* __restrict__ query, const float* __re
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
-  const int head_offset = head * HD;
+  const int head_offset = head * columns;
   const long long plane = static_cast<long long>(batch_size) * heads * time;
   const float* stats_row = stats + static_cast<long long>(batch_head) * time;
   const float* bias_base = key_bias + static_cast<long long>(batch) * time;
 
-  load_tile<HD>(k_tile, key + batch * strides.k_batch + head_offset, strides.k_time, key_start, time);
-  load_tile<HD>(v_tile, value + batch * strides.v_batch + head_offset, strides.v_time, key_start, time);
+  load_tile<HD>(k_tile, key + batch * strides.k_batch + head_offset, strides.k_time, key_start, time, columns);
+  load_tile<HD>(v_tile, value + batch * strides.v_batch + head_offset, strides.v_time, key_start, time, columns);
   for (int index = tid; index < kBlock; index += kThreads) {
     const int t = key_start + index;
     bias_tile[index] = t < time ? bias_base[t] * bias_scale : -INFINITY;
@@ -376,8 +382,8 @@ attention_backward_key_kernel(const float* __restrict__ query, const float* __re
 
   for (int query_start = 0; query_start < time; query_start += kBlock) {
     __syncthreads();
-    load_tile<HD>(q_tile, q_base, strides.q_time, query_start, time);
-    load_tile<HD>(g_tile, g_base, strides.g_time, query_start, time);
+    load_tile<HD>(q_tile, q_base, strides.q_time, query_start, time, columns);
+    load_tile<HD>(g_tile, g_base, strides.g_time, query_start, time, columns);
     for (int index = tid; index < kBlock; index += kThreads) {
       const int t = query_start + index;
       const bool inside = t < time;
@@ -490,6 +496,7 @@ attention_backward_key_kernel(const float* __restrict__ query, const float* __re
     if (t >= time) continue;
 #pragma unroll
     for (int j = 0; j < kOutCols; ++j) {
+      if (lane_col + 8 * j >= columns) continue;
       dk_base[t * strides.dk_time + lane_col + 8 * j] = dk_acc[i][j] * sm_scale;
       dv_base[t * strides.dv_time + lane_col + 8 * j] = dv_acc[i][j];
     }
@@ -508,8 +515,6 @@ constexpr size_t key_shared_bytes() {
 
 // ------------------------------------------------------- bf16, tensor cores
 
-using tiles::kStride;
-using tiles::kTileElements;
 using bf16 = __nv_bfloat16;
 
 // Key tiles whose keep bits kernel (a) draws in pass 1 and keeps in shared
@@ -549,45 +554,63 @@ __device__ __forceinline__ float mask_scale(const Dropout& dropout, uint32_t kep
   return dropout.enabled ? ((kept >> bit) & 1u ? dropout.inverse_keep : 0.0f) : 1.0f;
 }
 
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 }
 
-// Stores rows `row` and row + 8 (if inside `time`) of a 16 x 64 f32
-// accumulator, times `scale`, as bf16 at base + t * time_stride.
-__device__ __forceinline__ void store_rows(bf16* base, long long time_stride, int row, int time,
-                                           const float (&acc)[8][4], float scale, int lane) {
+// Stores rows `row` and row + 8 (if inside `time`) of the first `columns`
+// columns of a 16 x 8N f32 accumulator, times `scale`, as bf16 at base + t *
+// time_stride.
+template <int N>
+__device__ __forceinline__ void store_rows(bf16* base, long long time_stride, int row, int time, int columns,
+                                           const float (&acc)[N][4], float scale, int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = row + 8 * r;
     if (t >= time) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < N; ++j) {
+      if (8 * j >= columns) break;
       *reinterpret_cast<__nv_bfloat162*>(base + t * time_stride + 8 * j + 2 * (lane & 3)) =
           __floats2bfloat162_rn(acc[j][2 * r] * scale, acc[j][2 * r + 1] * scale);
+    }
   }
 }
 
-// Kernel (a), bf16: row statistics and dq. Held to 168 registers, so that
-// three blocks share an SM: it would take about 220 and spills 4 bytes at
-// that limit, and runs a few percent faster at the training shape. Kernel
-// (b) spills 136 bytes at that limit for no measurable gain, so it keeps two
-// blocks per SM.
-__global__ void __launch_bounds__(kThreads, 3)
+// Whether a kernel keeps its own rows' A fragments (q and g in (a), k and v
+// in (b)) in registers for the whole block: up to 64-wide heads. Wider ones
+// read them from their shared-memory tiles at each product, since the
+// accumulators (dq, or dk and dv) grow with the head width.
+template <int HD>
+constexpr bool kHoldFragments = HD <= 64;
+
+// Kernel (a), bf16: row statistics and dq. Up to 64-wide heads it is held to
+// 168 registers, so that three blocks share an SM: at 64 it would take about
+// 220 and spills 4 bytes at that limit, and runs a few percent faster at the
+// training shape. Wider heads keep two blocks per SM (255 registers). Kernel
+// (b) spills 136 bytes at 168 registers for no measurable gain, so it keeps
+// two blocks per SM at every width.
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 2)
 attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* __restrict__ key,
                                     const bf16* __restrict__ value, const bf16* __restrict__ grad,
                                     const float* __restrict__ key_bias, bf16* __restrict__ d_query,
-                                    float* __restrict__ stats, int batch_size, int time, int heads,
+                                    float* __restrict__ stats, int batch_size, int time, int heads, int head_columns,
                                     Strides strides, float score_scale, float bias_scale, float sm_scale,
                                     Dropout dropout) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
+  constexpr int kTileElements = tiles::Head<HD>::kTileElements;
+  constexpr bool kHold = kHoldFragments<HD>;
   extern __shared__ __align__(16) unsigned char shared_raw[];
-  bf16* q_tile = reinterpret_cast<bf16*>(shared_raw);  // [64][kStride]
-  bf16* g_tile = q_tile + kTileElements;                // [64][kStride]
-  bf16* k_tiles = g_tile + kTileElements;               // 2 x [64][kStride]
-  bf16* v_tiles = k_tiles + 2 * kTileElements;          // 2 x [64][kStride]
+  bf16* q_tile = reinterpret_cast<bf16*>(shared_raw);  // [64][HD + 8]
+  bf16* g_tile = q_tile + kTileElements;                // [64][HD + 8]
+  bf16* k_tiles = g_tile + kTileElements;               // 2 x [64][HD + 8]
+  bf16* v_tiles = k_tiles + 2 * kTileElements;          // 2 x [64][HD + 8]
   __shared__ float bias_tiles[2][kBlock];
   __shared__ uint32_t cached_keep_bits[kCachedMaskTiles][kThreads];  // pass 1's, for pass 2
   __shared__ int scratch[kThreads / 32];
@@ -599,7 +622,7 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
-  const int head_offset = head * tiles::kHeadDim;
+  const int head_offset = head * columns;
   const int row = query_start + 16 * warp + (lane >> 2);  // and row + 8
 
   const bf16* k_base = key + batch * strides.k_batch + head_offset;
@@ -608,8 +631,8 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
 
   auto load_keys = [&](int tile, int buffer) {
     const int key_start = tile * kBlock;
-    tiles::copy_tile_async(k_tiles + buffer * kTileElements, k_base, strides.k_time, key_start, time);
-    tiles::copy_tile_async(v_tiles + buffer * kTileElements, v_base, strides.v_time, key_start, time);
+    tiles::copy_tile_async<HD, kPadded>(k_tiles + buffer * kTileElements, k_base, strides.k_time, key_start, time, columns);
+    tiles::copy_tile_async<HD, kPadded>(v_tiles + buffer * kTileElements, v_base, strides.v_time, key_start, time, columns);
     tiles::commit_copies();
     for (int index = threadIdx.x; index < kBlock; index += kThreads) {
       const int t = key_start + index;
@@ -617,18 +640,21 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
     }
   };
 
-  tiles::copy_tile_async(q_tile, query + batch * strides.q_batch + head_offset, strides.q_time, query_start, time);
-  tiles::copy_tile_async(g_tile, grad + batch * strides.g_batch + head_offset, strides.g_time, query_start, time);
+  tiles::copy_tile_async<HD, kPadded>(q_tile, query + batch * strides.q_batch + head_offset, strides.q_time, query_start,
+                             time, columns);
+  tiles::copy_tile_async<HD, kPadded>(g_tile, grad + batch * strides.g_batch + head_offset, strides.g_time, query_start, time,
+                             columns);
   load_keys(0, 0);  // q and g join the first group
   const int key_tiles = tiles::key_tiles_needed(tiles::last_valid_key(bias_row, time, scratch), time);
   const int steps = 2 * key_tiles;  // pass 1, then pass 2, over the same tiles
 
-  uint32_t q_fragments[4][4], g_fragments[4][4];
+  uint32_t q_fragments[kHold ? tiles::Head<HD>::kFragments : 1][4];
+  uint32_t g_fragments[kHold ? tiles::Head<HD>::kFragments : 1][4];
   float row_max[2] = {-INFINITY, -INFINITY};  // rows `row`, row + 8
   float row_sum[2] = {0.0f, 0.0f};            // this lane's columns until pass 1 ends
   float row_dot[2] = {0.0f, 0.0f};
   float inverse_total[2];
-  float dq[8][4];
+  float dq[tiles::Head<HD>::kAccumulators][4];
   zero(dq);
 
   for (int step = 0; step < steps; ++step) {
@@ -641,9 +667,11 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
       tiles::wait_copies<0>();
     }
     __syncthreads();
-    if (step == 0) {
-      tiles::load_a_fragments(q_fragments, q_tile, 16 * warp, lane);
-      tiles::load_a_fragments(g_fragments, g_tile, 16 * warp, lane);
+    if constexpr (kHold) {
+      if (step == 0) {
+        tiles::load_a_fragments<HD>(q_fragments, q_tile, 16 * warp, lane);
+        tiles::load_a_fragments<HD>(g_fragments, g_tile, 16 * warp, lane);
+      }
     }
     const bf16* k_tile = k_tiles + buffer * kTileElements;
     const bf16* v_tile = v_tiles + buffer * kTileElements;
@@ -654,8 +682,13 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
     float scores[8][4], d_probs[8][4];
     zero(scores);
     zero(d_probs);
-    tiles::product_rows(scores, q_fragments, k_tile, lane);
-    tiles::product_rows(d_probs, g_fragments, v_tile, lane);
+    if constexpr (kHold) {
+      tiles::product_rows<HD>(scores, q_fragments, k_tile, lane);
+      tiles::product_rows<HD>(d_probs, g_fragments, v_tile, lane);
+    } else {
+      tiles::product_rows_from_tile<HD>(scores, q_tile, 16 * warp, k_tile, lane);
+      tiles::product_rows_from_tile<HD>(d_probs, g_tile, 16 * warp, v_tile, lane);
+    }
     uint32_t kept = 0u;
     if (dropout.enabled) {
       // Each thread reads back only what it wrote itself: no barrier needed.
@@ -727,12 +760,13 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
         }
       uint32_t ds_fragments[4][4];
       tiles::pack_a_fragments(ds_fragments, scores);
-      tiles::product_columns(dq, ds_fragments, k_tile, lane);
+      tiles::product_columns<HD>(dq, ds_fragments, k_tile, lane);
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
-  store_rows(d_query + batch * strides.dq_batch + head_offset, strides.dq_time, row, time, dq, sm_scale, lane);
+  store_rows(d_query + batch * strides.dq_batch + head_offset, strides.dq_time, row, time, columns, dq, sm_scale,
+             lane);
   if (column == 0) {
     const long long plane = static_cast<long long>(batch_size) * heads * time;
     float* stats_row = stats + static_cast<long long>(batch_head) * time;
@@ -748,18 +782,32 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
 }
 
 // Kernel (b), bf16: dk and dv of one 64-key tile over every query tile.
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __restrict__ key,
                                   const bf16* __restrict__ value, const bf16* __restrict__ grad,
                                   const float* __restrict__ key_bias, const float* __restrict__ stats,
                                   bf16* __restrict__ d_key, bf16* __restrict__ d_value, int batch_size, int time,
-                                  int heads, Strides strides, float score_scale, float bias_scale,
+                                  int heads, int head_columns, Strides strides, float score_scale, float bias_scale,
                                   float sm_scale, Dropout dropout) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
+  constexpr int kTileElements = tiles::Head<HD>::kTileElements;
+  constexpr int kAccumulators = tiles::Head<HD>::kAccumulators;
+  constexpr bool kHold = kHoldFragments<HD>;
+  // Wide heads keep fewer registers live beside dk and dv (HD / 2 a lane
+  // each): above 80 columns each query tile is taken in two parts of 32
+  // queries, one after the other, and above 96 the block sweeps the query
+  // tiles twice, first for dv and then for dk, so that the two accumulators
+  // are never live together. No spill at 96 or 128.
+  constexpr int kParts = HD > 80 ? 2 : 1;
+  constexpr int kSweeps = HD > 96 ? 2 : 1;
+  constexpr int kQueryTiles = 8 / kParts;  // n8 tiles of queries in a part
   extern __shared__ __align__(16) unsigned char shared_raw[];
-  bf16* k_tile = reinterpret_cast<bf16*>(shared_raw);  // [64 keys][kStride]
-  bf16* v_tile = k_tile + kTileElements;                // [64 keys][kStride]
-  bf16* q_tiles = v_tile + kTileElements;               // 2 x [64 queries][kStride]
-  bf16* g_tiles = q_tiles + 2 * kTileElements;          // 2 x [64 queries][kStride]
+  bf16* k_tile = reinterpret_cast<bf16*>(shared_raw);  // [64 keys][HD + 8]
+  bf16* v_tile = k_tile + kTileElements;                // [64 keys][HD + 8]
+  bf16* q_tiles = v_tile + kTileElements;               // 2 x [64 queries][HD + 8]
+  bf16* g_tiles = q_tiles + 2 * kTileElements;          // 2 x [64 queries][HD + 8]
   __shared__ float stat_tiles[2][3][kBlock];            // peak, 1 / total, <dp, p> per query
   __shared__ int scratch[kThreads / 32];
 
@@ -770,7 +818,7 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
-  const int head_offset = head * tiles::kHeadDim;
+  const int head_offset = head * columns;
   const int warp_key_start = key_start + 16 * warp;
   const int row = warp_key_start + (lane >> 2);  // this lane's keys: row, row + 8
   const long long plane = static_cast<long long>(batch_size) * heads * time;
@@ -783,10 +831,11 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
   if (last_valid >= 0 && key_start > last_valid) {
     // Every key of the tile is padding behind a valid key: p = 0 exactly, so
     // dk = dv = 0.
-    for (int chunk = threadIdx.x; chunk < kBlock * 8; chunk += kThreads) {
-      const int t = key_start + (chunk >> 3);
-      if (t >= time) continue;
-      const int offset = (chunk & 7) * 8;
+    constexpr int kChunks = tiles::Head<HD>::kChunks;
+    for (int chunk = threadIdx.x; chunk < kBlock * kChunks; chunk += kThreads) {
+      const int t = key_start + chunk / kChunks;
+      const int offset = (chunk % kChunks) * 8;
+      if (t >= time || offset >= columns) continue;
       *reinterpret_cast<uint4*>(dk_base + t * strides.dk_time + offset) = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(dv_base + t * strides.dv_time + offset) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -797,8 +846,8 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
   const bf16* g_base = grad + batch * strides.g_batch + head_offset;
   auto load_queries = [&](int tile, int buffer) {
     const int query_start = tile * kBlock;
-    tiles::copy_tile_async(q_tiles + buffer * kTileElements, q_base, strides.q_time, query_start, time);
-    tiles::copy_tile_async(g_tiles + buffer * kTileElements, g_base, strides.g_time, query_start, time);
+    tiles::copy_tile_async<HD, kPadded>(q_tiles + buffer * kTileElements, q_base, strides.q_time, query_start, time, columns);
+    tiles::copy_tile_async<HD, kPadded>(g_tiles + buffer * kTileElements, g_base, strides.g_time, query_start, time, columns);
     tiles::commit_copies();
     for (int index = threadIdx.x; index < kBlock; index += kThreads) {
       const int t = query_start + index;
@@ -810,9 +859,10 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
     }
   };
 
-  tiles::copy_tile_async(k_tile, key + batch * strides.k_batch + head_offset, strides.k_time, key_start, time);
-  tiles::copy_tile_async(v_tile, value + batch * strides.v_batch + head_offset, strides.v_time, key_start, time);
-  load_queries(0, 0);  // k and v join the first group
+  tiles::copy_tile_async<HD, kPadded>(k_tile, key + batch * strides.k_batch + head_offset, strides.k_time, key_start, time,
+                             columns);
+  tiles::copy_tile_async<HD, kPadded>(v_tile, value + batch * strides.v_batch + head_offset, strides.v_time, key_start, time,
+                             columns);
   float key_bias_scaled[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -821,70 +871,104 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
   }
   const int query_tiles = (time + kBlock - 1) / kBlock;
 
-  uint32_t k_fragments[4][4], v_fragments[4][4];
-  float dk[8][4], dv[8][4];
+  uint32_t k_fragments[kHold ? tiles::Head<HD>::kFragments : 1][4];
+  uint32_t v_fragments[kHold ? tiles::Head<HD>::kFragments : 1][4];
+  float dk[kAccumulators][4], dv[kAccumulators][4];
   zero(dk);
   zero(dv);
 
-  for (int tile = 0; tile < query_tiles; ++tile) {
-    const int buffer = tile & 1;
-    if (tile + 1 < query_tiles) {
-      load_queries(tile + 1, buffer ^ 1);
-      tiles::wait_copies<1>();
-    } else {
-      tiles::wait_copies<0>();
-    }
-    __syncthreads();
-    if (tile == 0) {
-      tiles::load_a_fragments(k_fragments, k_tile, 16 * warp, lane);
-      tiles::load_a_fragments(v_fragments, v_tile, 16 * warp, lane);
-    }
-    const bf16* q_tile = q_tiles + buffer * kTileElements;
-    const bf16* g_tile = g_tiles + buffer * kTileElements;
-    const float* peak = stat_tiles[buffer][0];
-    const float* inverse_total = stat_tiles[buffer][1];
-    const float* dot = stat_tiles[buffer][2];
-
-    // s^T = k.q^T (keys x queries), p, and dv += (mscale o p)^T g.
-    float probs[8][4];
-    zero(probs);
-    tiles::product_rows(probs, k_fragments, q_tile, lane);
-    const uint32_t kept =
-        dropout.enabled ? key_tile_keep_bits(dropout, batch_head, warp_key_start, tile * kBlock, lane) : 0u;
-    float weighted[8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = 8 * j + 2 * column + (e & 1);
-        probs[j][e] = exp2f((probs[j][e] * score_scale - peak[q]) + key_bias_scaled[e >> 1]) * inverse_total[q];
-        weighted[j][e] = probs[j][e] * mask_scale(dropout, kept, 4 * j + e);
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    const bool with_dv = kSweeps == 1 || sweep == 0;
+    const bool with_dk = kSweeps == 1 || sweep == 1;
+    if (sweep > 0) __syncthreads();  // the last sweep's readers are done with buffer 0
+    load_queries(0, 0);               // k and v join the first sweep's first group
+    for (int tile = 0; tile < query_tiles; ++tile) {
+      const int buffer = tile & 1;
+      if (tile + 1 < query_tiles) {
+        load_queries(tile + 1, buffer ^ 1);
+        tiles::wait_copies<1>();
+      } else {
+        tiles::wait_copies<0>();
       }
-    uint32_t fragments[4][4];
-    tiles::pack_a_fragments(fragments, weighted);
-    tiles::product_columns(dv, fragments, g_tile, lane);
-
-    // dp^T = mscale o (v.g^T), ds^T = p o (dp^T - <dp, p>), and dk += ds^T q.
-    float d_probs[8][4];
-    zero(d_probs);
-    tiles::product_rows(d_probs, v_fragments, g_tile, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = 8 * j + 2 * column + (e & 1);
-        d_probs[j][e] = probs[j][e] * (d_probs[j][e] * mask_scale(dropout, kept, 4 * j + e) - dot[q]);
+      __syncthreads();
+      if constexpr (kHold) {
+        if (tile == 0) {
+          tiles::load_a_fragments<HD>(k_fragments, k_tile, 16 * warp, lane);
+          tiles::load_a_fragments<HD>(v_fragments, v_tile, 16 * warp, lane);
+        }
       }
-    tiles::pack_a_fragments(fragments, d_probs);
-    tiles::product_columns(dk, fragments, q_tile, lane);
-    __syncthreads();  // every warp is done with this buffer before it is refilled
+      const bf16* q_tile = q_tiles + buffer * kTileElements;
+      const bf16* g_tile = g_tiles + buffer * kTileElements;
+      const float* peak = stat_tiles[buffer][0];
+      const float* inverse_total = stat_tiles[buffer][1];
+      const float* dot = stat_tiles[buffer][2];
+
+      uint32_t kept = 0u;
+      // One part of the tile's queries: rows kBlock / kParts * part onwards.
+      auto take_part = [&](int part) {
+        const int first_query = kBlock / kParts * part;
+        const bf16* q_rows = q_tile + first_query * tiles::Head<HD>::kStride;
+        const bf16* g_rows = g_tile + first_query * tiles::Head<HD>::kStride;
+
+        // s^T = k.q^T (keys x queries), p, and dv += (mscale o p)^T g.
+        float probs[kQueryTiles][4];
+        zero(probs);
+        if constexpr (kHold)
+          tiles::product_rows<HD>(probs, k_fragments, q_rows, lane);
+        else
+          tiles::product_rows_from_tile<HD>(probs, k_tile, 16 * warp, q_rows, lane);
+        if (part == 0)
+          kept = dropout.enabled ? key_tile_keep_bits(dropout, batch_head, warp_key_start, tile * kBlock, lane) : 0u;
+        float weighted[kQueryTiles][4];
+#pragma unroll
+        for (int j = 0; j < kQueryTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = first_query + 8 * j + 2 * column + (e & 1);
+            const int bit = 4 * (kQueryTiles * part + j) + e;
+            probs[j][e] = exp2f((probs[j][e] * score_scale - peak[q]) + key_bias_scaled[e >> 1]) * inverse_total[q];
+            weighted[j][e] = probs[j][e] * mask_scale(dropout, kept, bit);
+          }
+        uint32_t fragments[kQueryTiles / 2][4];
+        if (with_dv) {
+          tiles::pack_a_fragments(fragments, weighted);
+          tiles::product_columns<HD>(dv, fragments, g_rows, lane);
+        }
+        if (!with_dk) return;
+
+        // dp^T = mscale o (v.g^T), ds^T = p o (dp^T - <dp, p>), and dk += ds^T q.
+        float d_probs[kQueryTiles][4];
+        zero(d_probs);
+        if constexpr (kHold)
+          tiles::product_rows<HD>(d_probs, v_fragments, g_rows, lane);
+        else
+          tiles::product_rows_from_tile<HD>(d_probs, v_tile, 16 * warp, g_rows, lane);
+#pragma unroll
+        for (int j = 0; j < kQueryTiles; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int q = first_query + 8 * j + 2 * column + (e & 1);
+            const int bit = 4 * (kQueryTiles * part + j) + e;
+            d_probs[j][e] = probs[j][e] * (d_probs[j][e] * mask_scale(dropout, kept, bit) - dot[q]);
+          }
+        tiles::pack_a_fragments(fragments, d_probs);
+        tiles::product_columns<HD>(dk, fragments, q_rows, lane);
+      };
+      if constexpr (kParts == 1) {
+        take_part(0);
+      } else {
+#pragma unroll 1
+        for (int part = 0; part < kParts; ++part) take_part(part);
+      }
+      __syncthreads();  // every warp is done with this buffer before it is refilled
+    }
+    if (kSweeps == 2 && sweep == 0) store_rows(dv_base, strides.dv_time, row, time, columns, dv, 1.0f, lane);
   }
 
-  store_rows(dk_base, strides.dk_time, row, time, dk, sm_scale, lane);
-  store_rows(dv_base, strides.dv_time, row, time, dv, 1.0f, lane);
+  store_rows(dk_base, strides.dk_time, row, time, columns, dk, sm_scale, lane);
+  if (kSweeps == 1) store_rows(dv_base, strides.dv_time, row, time, columns, dv, 1.0f, lane);
 }
-
-constexpr size_t kMmaSharedBytes = 6 * tiles::kTileBytes;
 
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t bytes) {
@@ -892,60 +976,70 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
 }
 
 int launch_f32(const void* query, const void* key, const void* value, const void* grad, const float* key_bias,
-               void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads,
+               void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads, int head_dim,
                const Strides& strides, float score_scale, float bias_scale, float sm_scale, const Dropout& dropout,
                cudaStream_t stream) {
-  constexpr size_t query_bytes = query_shared_bytes<64>();
-  constexpr size_t key_bytes = key_shared_bytes<64>();
-  cudaError_t status = allow_shared(attention_backward_query_kernel<64>, query_bytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  status = allow_shared(attention_backward_key_kernel<64>, key_bytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((time + kBlock - 1) / kBlock, heads, batch);
-  const float* q = static_cast<const float*>(query);
-  const float* k = static_cast<const float*>(key);
-  const float* v = static_cast<const float*>(value);
-  const float* g = static_cast<const float*>(grad);
-  attention_backward_query_kernel<64><<<grid, kThreads, query_bytes, stream>>>(
-      q, k, v, g, key_bias, static_cast<float*>(d_query), stats, batch, time, heads, strides, score_scale,
-      bias_scale, sm_scale, dropout);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return static_cast<int>(status);
-  attention_backward_key_kernel<64><<<grid, kThreads, key_bytes, stream>>>(
-      q, k, v, g, key_bias, stats, static_cast<float*>(d_key), static_cast<float*>(d_value), batch, time, heads,
-      strides, score_scale, bias_scale, sm_scale, dropout);
-  return static_cast<int>(cudaGetLastError());
+  return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
+    constexpr int HD = decltype(width)::value;
+    constexpr bool kPadded = decltype(padded)::value;
+    constexpr size_t query_bytes = query_shared_bytes<HD>();
+    constexpr size_t key_bytes = key_shared_bytes<HD>();
+    cudaError_t status = allow_shared(attention_backward_query_kernel<HD, kPadded>, query_bytes);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    status = allow_shared(attention_backward_key_kernel<HD, kPadded>, key_bytes);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const dim3 grid((time + kBlock - 1) / kBlock, heads, batch);
+    const float* q = static_cast<const float*>(query);
+    const float* k = static_cast<const float*>(key);
+    const float* v = static_cast<const float*>(value);
+    const float* g = static_cast<const float*>(grad);
+    attention_backward_query_kernel<HD, kPadded><<<grid, kThreads, query_bytes, stream>>>(
+        q, k, v, g, key_bias, static_cast<float*>(d_query), stats, batch, time, heads, head_dim, strides, score_scale,
+        bias_scale, sm_scale, dropout);
+    status = cudaGetLastError();
+    if (status != cudaSuccess) return static_cast<int>(status);
+    attention_backward_key_kernel<HD, kPadded><<<grid, kThreads, key_bytes, stream>>>(
+        q, k, v, g, key_bias, stats, static_cast<float*>(d_key), static_cast<float*>(d_value), batch, time, heads,
+        head_dim, strides, score_scale, bias_scale, sm_scale, dropout);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int launch_bf16(const void* query, const void* key, const void* value, const void* grad, const float* key_bias,
-                void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads,
+                void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads, int head_dim,
                 const Strides& strides, float score_scale, float bias_scale, float sm_scale, const Dropout& dropout,
                 cudaStream_t stream) {
-  cudaError_t status = allow_shared(attention_backward_query_mma_kernel, kMmaSharedBytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  status = allow_shared(attention_backward_key_mma_kernel, kMmaSharedBytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((time + kBlock - 1) / kBlock, heads, batch);
-  const bf16* q = static_cast<const bf16*>(query);
-  const bf16* k = static_cast<const bf16*>(key);
-  const bf16* v = static_cast<const bf16*>(value);
-  const bf16* g = static_cast<const bf16*>(grad);
-  attention_backward_query_mma_kernel<<<grid, kThreads, kMmaSharedBytes, stream>>>(
-      q, k, v, g, key_bias, static_cast<bf16*>(d_query), stats, batch, time, heads, strides, score_scale,
-      bias_scale, sm_scale, dropout);
-  status = cudaGetLastError();
-  if (status != cudaSuccess) return static_cast<int>(status);
-  attention_backward_key_mma_kernel<<<grid, kThreads, kMmaSharedBytes, stream>>>(
-      q, k, v, g, key_bias, stats, static_cast<bf16*>(d_key), static_cast<bf16*>(d_value), batch, time, heads,
-      strides, score_scale, bias_scale, sm_scale, dropout);
-  return static_cast<int>(cudaGetLastError());
+  return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
+    constexpr int HD = decltype(width)::value;
+    constexpr bool kPadded = decltype(padded)::value;
+    constexpr size_t bytes = 6 * tiles::Head<HD>::kTileBytes;
+    cudaError_t status = allow_shared(attention_backward_query_mma_kernel<HD, kPadded>, bytes);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    status = allow_shared(attention_backward_key_mma_kernel<HD, kPadded>, bytes);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const dim3 grid((time + kBlock - 1) / kBlock, heads, batch);
+    const bf16* q = static_cast<const bf16*>(query);
+    const bf16* k = static_cast<const bf16*>(key);
+    const bf16* v = static_cast<const bf16*>(value);
+    const bf16* g = static_cast<const bf16*>(grad);
+    attention_backward_query_mma_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, g, key_bias, static_cast<bf16*>(d_query), stats, batch, time, heads, head_dim, strides, score_scale,
+        bias_scale, sm_scale, dropout);
+    status = cudaGetLastError();
+    if (status != cudaSuccess) return static_cast<int>(status);
+    attention_backward_key_mma_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
+        q, k, v, g, key_bias, stats, static_cast<bf16*>(d_key), static_cast<bf16*>(d_value), batch, time, heads,
+        head_dim, strides, score_scale, bias_scale, sm_scale, dropout);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 // strides: q, k, v, g, dq, dk, dv batch and time strides in elements (14
 // values); the head-dim axis must be contiguous, and for bf16 every head row
-// must start on a 16-byte boundary (the wrapper checks both). stats: f32
+// must start on a 16-byte boundary (the wrapper checks both). head_dim: a
+// multiple of 8 from 8 to 128 (tiles::with_head_width). stats: f32
 // [3, B, H, T] scratch. use_dropout 0 computes the backward of plain
 // attention (the seeds, threshold and inverse_keep are then unused). dtype:
 // 0 = f32, 1 = bf16. Returns cudaGetLastError() after the two launches (0 on
@@ -957,15 +1051,14 @@ extern "C" int attention_backward(const void* query, const void* key, const void
                                   float sm_scale, uint32_t seed0, uint32_t seed1, uint32_t threshold,
                                   float inverse_keep, int use_dropout, int dtype, void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
-  if (head_dim != tiles::kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   const Strides packed{strides[0], strides[1], strides[2],  strides[3],  strides[4],  strides[5],  strides[6],
                        strides[7], strides[8], strides[9], strides[10], strides[11], strides[12], strides[13]};
   const Dropout dropout{seed0, seed1, threshold, inverse_keep, use_dropout};
   if (dtype == 0)
-    return launch_f32(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads, packed,
-                      score_scale, bias_scale, sm_scale, dropout, cuda_stream);
+    return launch_f32(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads, head_dim,
+                      packed, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
   if (dtype == 1)
     return launch_bf16(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads,
-                       packed, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
+                       head_dim, packed, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -2,7 +2,12 @@
 // oneshot_attention.cu, K5's forward with dropout in attention_dropout.cu,
 // K4's backward in attention_backward.cu): 64-row bf16
 // tiles of one head in shared memory, filled by 16-byte cp.async, read into
-// mma.sync.m16n8k16 fragments by ldmatrix.
+// mma.sync.m16n8k16 fragments by ldmatrix. Everything that depends on the
+// head width HD is a template on it; the kernels are instantiated at the
+// widths of HeadWidths below (wav2vec2 base and XLS-R 300M have 64-wide heads,
+// XLS-R 1B 80, XLS-R 2B 120), and any other multiple of 8 up to 128 runs as
+// the next of them, its extra columns zero-filled in shared memory and never
+// stored.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // = 4 * g + c of a warp (g = lane / 4, c = lane % 4):
@@ -18,39 +23,86 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace tiles {
 
 constexpr int kRows = 64;     // rows (queries or keys) of a tile
-constexpr int kHeadDim = 64;  // every released wav2vec2 / XLS-R encoder
 constexpr int kThreads = 128;  // four warps, 16 rows each
-// bf16 elements per shared-memory row: 144 bytes, so the eight 16-byte rows
-// that one ldmatrix 8x8 reads fall on eight distinct groups of four banks.
-constexpr int kStride = kHeadDim + 8;
-constexpr int kTileElements = kRows * kStride;
-constexpr int kTileBytes = kTileElements * 2;
 // A key is valid iff its bias is above NEG_INF / 2 (ops/oneshot_attention.py).
 constexpr float kValidBias = -5e8f;
+
+// Calls launch(std::integral_constant<int, HD>(), std::bool_constant<padded>())
+// with the head width HD that runs a head of `head_dim` columns, the first
+// of 32, 64, 80, 96 and 128 at least head_dim, and whether head_dim falls
+// short of it. A kernel built with padded false takes its column count as
+// the constant HD, so an exact width compiles no column checks. A head_dim
+// that is not a multiple of 8 in 8 .. 128 returns cudaErrorInvalidValue (the
+// wrappers raise on it first).
+template <int HD, typename Launch>
+int with_padding(int head_dim, Launch&& launch) {
+  if (head_dim == HD) return launch(std::integral_constant<int, HD>(), std::false_type());
+  return launch(std::integral_constant<int, HD>(), std::true_type());
+}
+
+template <typename Launch>
+int with_head_width(int head_dim, Launch&& launch) {
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim <= 32) return with_padding<32>(head_dim, launch);
+  if (head_dim <= 64) return with_padding<64>(head_dim, launch);
+  if (head_dim <= 80) return with_padding<80>(head_dim, launch);
+  if (head_dim <= 96) return with_padding<96>(head_dim, launch);
+  return with_padding<128>(head_dim, launch);
+}
+
+// Every kernel built on these tiles names two blocks per SM in its
+// __launch_bounds__ at the widths other than 64 (K4's query kernel: above
+// 64): without it ptxas traded a few spilled registers for a third block at
+// some widths. At 64 each keeps the register budget it had before it took
+// other widths.
+//
+// The shapes of one head width's tiles and fragments.
+template <int HD>
+struct Head {
+  static_assert(HD % 16 == 0 && HD <= 128, "a tile's head width is a multiple of 16, at most 128");
+  // bf16 elements per shared-memory row: (HD + 8) * 2 bytes, an odd multiple
+  // of 16 at every width above, so the eight 16-byte rows that one ldmatrix
+  // 8x8 reads fall on eight distinct groups of four banks.
+  static constexpr int kStride = HD + 8;
+  static constexpr int kTileElements = kRows * kStride;
+  static constexpr int kTileBytes = kTileElements * 2;
+  static constexpr int kChunks = HD / 8;        // 16-byte chunks of a row
+  static constexpr int kFragments = HD / 16;    // A fragments over a row's HD columns
+  static constexpr int kAccumulators = HD / 8;  // n8 accumulator tiles over HD columns
+};
 
 __device__ __forceinline__ uint32_t shared_address(const void* pointer) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(pointer));
 }
 
-// Starts the copy of rows start .. start + 63 of one head (64 bf16 from
-// `base + t * time_stride`) into `tile`; rows at or past `time` are zero-filled
-// (cp.async reads 0 bytes of them). The caller commits the group.
+// Starts the copy of rows start .. start + 63 of one head (HD bf16 from
+// `base + t * time_stride`) into `tile`; rows at or past `time`, and with
+// kPadded the columns at or past the head's own width `columns` (a multiple
+// of 8), are zero-filled (cp.async reads 0 bytes of them). The caller
+// commits the group.
+template <int HD, bool kPadded>
 __device__ __forceinline__ void copy_tile_async(__nv_bfloat16* tile, const __nv_bfloat16* base,
-                                                long long time_stride, int start, int time) {
+                                                long long time_stride, int start, int time, int columns) {
+  constexpr unsigned kChunks = Head<HD>::kChunks;
 #pragma unroll
-  for (int step = 0; step < kRows * 8 / kThreads; ++step) {
-    const int chunk = threadIdx.x + step * kThreads;
-    const int row = chunk >> 3;
-    const int column = (chunk & 7) * 8;
+  for (int step = 0; step < kRows * static_cast<int>(kChunks) / kThreads; ++step) {
+    const unsigned chunk = threadIdx.x + step * kThreads;
+    const int row = static_cast<int>(chunk / kChunks);
+    const int column = static_cast<int>(chunk % kChunks) * 8;
     const int t = start + row;
-    const bool inside = t < time;
-    const __nv_bfloat16* source = base + static_cast<long long>(inside ? t : 0) * time_stride + column;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(tile + row * kStride + column)),
+    const bool inside = t < time && (!kPadded || column < columns);
+    const __nv_bfloat16* source =
+        base + static_cast<long long>(t < time ? t : 0) * time_stride + (!kPadded || column < columns ? column : 0);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(shared_address(tile + row * Head<HD>::kStride + column)),
                  "l"(source), "r"(inside ? 16 : 0)
                  : "memory");
   }
@@ -92,64 +144,98 @@ __device__ __forceinline__ uint32_t pack_bf16(float low, float high) {
   return *reinterpret_cast<const uint32_t*>(&pair);
 }
 
-// The A fragments of rows row0 .. row0 + 15 over all 64 columns of a tile
+// The A fragment of rows row0 .. row0 + 15 over columns 16k .. 16k + 15 of a
+// tile whose rows are `stride` elements apart.
+__device__ __forceinline__ void load_a_fragment(uint32_t (&a)[4], const __nv_bfloat16* tile, int stride, int row0,
+                                                int k, int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * stride + 16 * k + (lane >> 4) * 8);
+}
+
+// The A fragments of rows row0 .. row0 + 15 over all HD columns of a tile
 // (a[k] covers columns 16k .. 16k + 15).
-__device__ __forceinline__ void load_a_fragments(uint32_t (&a)[4][4], const __nv_bfloat16* tile, int row0, int lane) {
+template <int HD>
+__device__ __forceinline__ void load_a_fragments(uint32_t (&a)[Head<HD>::kFragments][4], const __nv_bfloat16* tile,
+                                                 int row0, int lane) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) ldmatrix_x4(a[k], tile + (row0 + (lane & 15)) * kStride + 16 * k + (lane >> 4) * 8);
+  for (int k = 0; k < Head<HD>::kFragments; ++k) load_a_fragment(a[k], tile, Head<HD>::kStride, row0, k, lane);
 }
 
 // B fragments of out[r][n] += sum_k a[r][k] tile[n][k]: the tile holds B
 // transposed (rows n, e.g. keys for q.k^T). For rows n0 .. n0 + 15 and
 // reduction columns k0 .. k0 + 15: b[0], b[1] of the n8 tile n0 and b[2], b[3]
 // of the n8 tile n0 + 8.
+template <int HD>
 __device__ __forceinline__ void load_b_rows(uint32_t (&b)[4], const __nv_bfloat16* tile, int n0, int k0, int lane) {
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * kStride + k0 + ((lane >> 3) & 1) * 8);
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * Head<HD>::kStride + k0 + ((lane >> 3) & 1) * 8);
 }
 
 // B fragments of out[r][n] += sum_k a[r][k] tile[k][n]: the tile holds B as
 // it is (rows k, e.g. keys for p.v), read transposed by ldmatrix.trans. For
 // reduction rows k0 .. k0 + 15 and columns n0 .. n0 + 15: b[0], b[1] of the
 // n8 tile n0 and b[2], b[3] of the n8 tile n0 + 8.
+template <int HD>
 __device__ __forceinline__ void load_b_columns(uint32_t (&b)[4], const __nv_bfloat16* tile, int k0, int n0, int lane) {
-  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + n0 + (lane >> 4) * 8);
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * Head<HD>::kStride + n0 + (lane >> 4) * 8);
 }
 
-// acc[j] (the n8 tile j of a 16 x 64 product) += a (16 x 64) . tile^T, the
-// tile's rows being the 64 output columns.
-__device__ __forceinline__ void product_rows(float (&acc)[8][4], const uint32_t (&a)[4][4], const __nv_bfloat16* tile,
-                                             int lane) {
+// acc[j] (the n8 tile j of a 16 x 8N product) += a (16 x HD, columns 16k ..
+// 16k + 15 in a[k]) . tile^T, the tile's first 8N rows being the output
+// columns (N = 8: all 64).
+template <int HD, int N>
+__device__ __forceinline__ void product_rows_step(float (&acc)[N][4], const uint32_t (&a)[4], int k,
+                                                  const __nv_bfloat16* tile, int lane) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      uint32_t b[4];
-      load_b_rows(b, tile, 16 * n, 16 * k, lane);
-      mma(acc[2 * n], a[k], b[0], b[1]);
-      mma(acc[2 * n + 1], a[k], b[2], b[3]);
-    }
+  for (int n = 0; n < N / 2; ++n) {
+    uint32_t b[4];
+    load_b_rows<HD>(b, tile, 16 * n, 16 * k, lane);
+    mma(acc[2 * n], a, b[0], b[1]);
+    mma(acc[2 * n + 1], a, b[2], b[3]);
+  }
 }
 
-// acc[j] (the n8 tile j of a 16 x 64 product) += a (16 x 64) . tile, the
-// tile's rows being the 64 reduction rows.
-__device__ __forceinline__ void product_columns(float (&acc)[8][4], const uint32_t (&a)[4][4],
+template <int HD, int N>
+__device__ __forceinline__ void product_rows(float (&acc)[N][4], const uint32_t (&a)[Head<HD>::kFragments][4],
+                                             const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int k = 0; k < Head<HD>::kFragments; ++k) product_rows_step<HD>(acc, a[k], k, tile, lane);
+}
+
+// product_rows with the A operand read from rows row0 .. row0 + 15 of
+// `a_tile` one fragment at a time, for kernels whose registers cannot hold
+// all of a wide head's fragments at once.
+template <int HD, int N>
+__device__ __forceinline__ void product_rows_from_tile(float (&acc)[N][4], const __nv_bfloat16* a_tile, int row0,
+                                                       const __nv_bfloat16* tile, int lane) {
+#pragma unroll
+  for (int k = 0; k < Head<HD>::kFragments; ++k) {
+    uint32_t a[4];
+    load_a_fragment(a, a_tile, Head<HD>::kStride, row0, k, lane);
+    product_rows_step<HD>(acc, a, k, tile, lane);
+  }
+}
+
+// acc[j] (the n8 tile j of a 16 x HD product) += a (16 x 16K) . tile, the
+// tile's first 16K rows being the reduction rows (K = 4: all 64).
+template <int HD, int K>
+__device__ __forceinline__ void product_columns(float (&acc)[Head<HD>::kAccumulators][4], const uint32_t (&a)[K][4],
                                                 const __nv_bfloat16* tile, int lane) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < K; ++k)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+    for (int n = 0; n < HD / 16; ++n) {
       uint32_t b[4];
-      load_b_columns(b, tile, 16 * k, 16 * n, lane);
+      load_b_columns<HD>(b, tile, 16 * k, 16 * n, lane);
       mma(acc[2 * n], a[k], b[0], b[1]);
       mma(acc[2 * n + 1], a[k], b[2], b[3]);
     }
 }
 
-// The A fragments of a 16 x 64 operand from f32 accumulator values already in
+// The A fragments of a 16 x 16K operand from f32 accumulator values already in
 // C layout (value[j] of the n8 tile j), rounded to bf16.
-__device__ __forceinline__ void pack_a_fragments(uint32_t (&a)[4][4], const float (&value)[8][4]) {
+template <int K>
+__device__ __forceinline__ void pack_a_fragments(uint32_t (&a)[K][4], const float (&value)[2 * K][4]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < K; ++k) {
     a[k][0] = pack_bf16(value[2 * k][0], value[2 * k][1]);
     a[k][1] = pack_bf16(value[2 * k][2], value[2 * k][3]);
     a[k][2] = pack_bf16(value[2 * k + 1][0], value[2 * k + 1][1]);

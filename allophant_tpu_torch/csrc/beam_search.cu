@@ -20,8 +20,9 @@
 // [B, T, C] f32 emissions read once, two [T, B, K] int32 grids written once,
 // a few dozen flops per candidate). What really holds it back is the serial
 // chain: T steps, each depending on the last, so a launch takes T times the
-// latency of one step whatever B is (rows run in parallel). Two kernels keep
-// that chain short; beam_search_forward picks one by shape alone (route()):
+// latency of one step whatever B is (rows run in parallel). Three kernels
+// keep that chain short; beam_search_forward picks one by shape alone
+// (route()):
 //
 // The warp kernel, for K <= 8 beams and C <= 64 classes (every head of the
 // flagship: K = 4 with C = 4 and C = 40), gives each batch row a block of one
@@ -65,6 +66,34 @@
 //   scores them, so a selection round is one warp-shuffle argmax and one
 //   barrier, not a rescan of the K * C candidates; only the K winners have
 //   their fields recomputed.
+//
+// The wide kernel takes every K above 16 (CTC decoders commonly search 32 to
+// 100 beams). A sorted list per thread no longer fits in registers there, and
+// K selection rounds of one barrier each would cost K barriers a step, so:
+// - one block per row; the row's workspace (slot state, per-step stays, a
+//   hash table of the live beams and the K * C candidate keys) lies in
+//   dynamic shared memory when it fits and otherwise in a global scratch
+//   tensor that the wrapper allocates (beam_search_workspace_bytes);
+// - merges are found by hashing, O(K * C) work a step and O(K) memory, not
+//   O(K^2): each live beam's (h1, h2) goes into an open-addressing table
+//   whose slot keeps the highest beam of an equal pair (the last matching
+//   stay wins, as in the twin); each extension of a live beam probes it, and
+//   a hit marks the table slot consumed, so the stays consumed are known
+//   once every extension is scored;
+// - every candidate's 64-bit order key (the warp kernel's: value, then the
+//   complemented k-major index) is written once; a block-wide radix select
+//   (8-bit digits from the top, warp-aggregated histogram counts, stopping
+//   as soon as the selected bin holds exactly the winners still wanted)
+//   finds the K-th largest key, whatever the ties; the K winners are then
+//   gathered and ranked by counting, and only they have their fields
+//   recomputed.
+//
+// The backtrace gives each row one block, copies the row's parents and
+// tokens into shared memory (up to kBacktraceStagedInts a [T, K] array), and
+// cuts the row's dependent chain of T parent loads into segments that are
+// chased in parallel, then joined (beam_backtrace_kernel): about
+// 3 sqrt(T / 2) dependent loads instead of T. Steps at or past a row's
+// length are written as -1 with no chase.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -77,7 +106,7 @@ constexpr float kNegInf = -1e30f;     // _NEG_INF: the score of an empty slot
 constexpr float kDeadBelow = -5e29f;  // _NEG_INF / 2: a slot at or below it is dead
 constexpr uint32_t kHashP1 = 1000003u;
 constexpr uint32_t kHashP2 = 31337u;
-constexpr int kMaxBeams = 16;
+constexpr int kMaxBeams = 16;  // the block kernel's widest K; wider rows take the wide kernel
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 // Rows up to this many classes are double-buffered in shared memory (2 * 64 KB).
@@ -88,6 +117,18 @@ constexpr int kNoLane = 0x7fffffff;
 constexpr int kWarpMaxBeams = 8;
 constexpr int kWarpMaxClasses = 64;
 constexpr unsigned kAllLanes = 0xffffffffu;
+// The wide kernel's block, and the dynamic shared memory it may take for a
+// row's workspace and staged emissions before the workspace moves to global
+// scratch.
+constexpr int kWideThreads = 512;
+constexpr size_t kWideSharedLimit = 200 * 1024;
+// The backtrace's block, and about the most (segment, beam) pairs of its
+// maps (two ints each in shared memory).
+constexpr int kBacktraceThreads = 128;
+constexpr int kBacktraceSegmentPairs = 4096;
+// The most ints of one [T, K] array the backtrace stages in shared memory
+// (two arrays: 64 KB).
+constexpr int kBacktraceStagedInts = 8192;
 
 // Without a branch, so that the compiler can interleave its long dependent
 // chain with other work.
@@ -793,33 +834,444 @@ int launch_warp_beams(const float* emissions, const int* lengths, int* parents, 
   return launch_warp<8, kOnePerLane>(emissions, lengths, parents, emitted, scores, batch, time, classes, beams, blank, stream);
 }
 
+// ------------------------------------------------------------- wide kernel
+
+// Where each array of a row's workspace lies, in bytes from its start: the
+// two slot states (h1, h2, last, logp_b, logp_nb), the step's per-beam
+// quantities (total, stays, the table slot of each live beam), the hash table
+// (beam, h1, h2, consumed per slot), the gathered and the ranked winners' keys
+// and the K * C candidate keys.
+struct WideLayout {
+  int table_bits;
+  size_t state, step, table, gathered, ranked, keys, bytes;
+
+  __host__ __device__ WideLayout(int classes, int beams) : table_bits(1) {
+    while ((1 << table_bits) < 2 * beams) ++table_bits;  // at most half full
+    const size_t words = static_cast<size_t>(beams);
+    state = 0;
+    step = state + 10 * words * 4;
+    table = step + 5 * words * 4;
+    gathered = (table + 4 * (static_cast<size_t>(1) << table_bits) * 4 + 15) / 16 * 16;
+    ranked = gathered + words * 8;
+    keys = ranked + words * 8;
+    bytes = (keys + words * classes * 8 + 15) / 16 * 16;
+  }
+};
+
+__device__ __forceinline__ uint32_t table_slot(uint32_t h1, uint32_t h2, int bits) {
+  return ((h1 ^ (h2 * 0x85EBCA6Bu)) * 0x9E3779B1u) >> (32 - bits);
+}
+
+// The two hash-table probes share this: the highest live beam whose (h1, h2)
+// equal the given pair, and its slot, or -1.
+__device__ __forceinline__ int probe(const int* table_beam, const uint32_t* table_h1, const uint32_t* table_h2,
+                                     uint32_t h1, uint32_t h2, int bits, int& slot) {
+  const uint32_t mask = (1u << bits) - 1u;
+  for (uint32_t s = table_slot(h1, h2, bits);; s = (s + 1u) & mask) {
+    const int beam = table_beam[s];
+    if (beam < 0) return -1;
+    if (table_h1[s] == h1 && table_h2[s] == h2) {
+      slot = static_cast<int>(s);
+      return beam;
+    }
+  }
+}
+
+// One block per batch row, any K. The row's workspace of WideLayout(classes,
+// beams) is in dynamic shared memory with `workspace_in_shared`, else at its
+// row's place in `global_workspace`; with `staged` the emission rows are
+// double-buffered in dynamic shared memory after it.
+__global__ void __launch_bounds__(kWideThreads)
+beam_search_wide_kernel(const float* __restrict__ emissions, const int* __restrict__ lengths,
+                        int* __restrict__ parents, int* __restrict__ emitted, float* __restrict__ scores, int batch,
+                        int time, int classes, int beams, int blank, unsigned char* global_workspace,
+                        int workspace_in_shared, int staged) {
+  extern __shared__ __align__(16) unsigned char wide_shared[];
+  __shared__ unsigned histogram[256];
+  __shared__ unsigned long long select_prefix, select_mask;
+  __shared__ unsigned select_remaining;
+  __shared__ int select_done;
+  __shared__ unsigned winner_count;
+
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int threads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int length = min(max(lengths[row], 0), time);
+  const float* row_emissions = emissions + static_cast<long long>(row) * time * classes;
+  const WideLayout layout(classes, beams);
+  unsigned char* base = workspace_in_shared ? wide_shared : global_workspace + static_cast<size_t>(row) * layout.bytes;
+  float* staged_rows = reinterpret_cast<float*>(wide_shared + (workspace_in_shared ? layout.bytes : 0));
+  const int candidates = beams * classes;
+  const int table_size = 1 << layout.table_bits;
+
+  // Slot state s (0 or 1): h1, h2, last, logp_b and logp_nb, K words each.
+  uint32_t* state_words = reinterpret_cast<uint32_t*>(base + layout.state);
+  auto h1_of = [&](int s) { return state_words + 5 * s * beams; };
+  auto h2_of = [&](int s) { return state_words + (5 * s + 1) * beams; };
+  auto last_of = [&](int s) { return reinterpret_cast<int*>(state_words + (5 * s + 2) * beams); };
+  auto blank_of = [&](int s) { return reinterpret_cast<float*>(state_words + (5 * s + 3) * beams); };
+  auto non_blank_of = [&](int s) { return reinterpret_cast<float*>(state_words + (5 * s + 4) * beams); };
+  float* step_total = reinterpret_cast<float*>(base + layout.step);
+  float* stay_b = step_total + beams;
+  float* stay_nb = stay_b + beams;
+  float* stay_total = stay_nb + beams;
+  int* slot_of = reinterpret_cast<int*>(stay_total + beams);
+  int* table_beam = reinterpret_cast<int*>(base + layout.table);
+  uint32_t* table_h1 = reinterpret_cast<uint32_t*>(table_beam + table_size);
+  uint32_t* table_h2 = table_h1 + table_size;
+  int* table_consumed = reinterpret_cast<int*>(table_h2 + table_size);
+  unsigned long long* gathered = reinterpret_cast<unsigned long long*>(base + layout.gathered);
+  unsigned long long* ranked = reinterpret_cast<unsigned long long*>(base + layout.ranked);
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(base + layout.keys);
+
+  for (int k = tid; k < beams; k += threads) {
+    h1_of(0)[k] = 1u;
+    h2_of(0)[k] = 1u;
+    last_of(0)[k] = -1;
+    blank_of(0)[k] = k == 0 ? 0.0f : kNegInf;
+    non_blank_of(0)[k] = kNegInf;
+  }
+  for (int s = tid; s < table_size; s += threads) {
+    table_beam[s] = -1;
+    table_consumed[s] = 0;
+  }
+  for (int b = tid; b < 256; b += threads) histogram[b] = 0;
+  if (staged && length > 0) {
+    for (int c = tid; c < classes; c += threads) __pipeline_memcpy_async(staged_rows + c, row_emissions + c, 4);
+  }
+  __pipeline_commit();
+
+  int current = 0;
+  for (int t = 0; t < length; ++t) {
+    const float* frame;
+    if (staged) {
+      __pipeline_wait_prior(0);
+      __syncthreads();  // step t's row has landed; step t - 1 is finished
+      frame = staged_rows + (t & 1) * classes;
+      if (t + 1 < length) {
+        float* next = staged_rows + ((t + 1) & 1) * classes;
+        const float* source = row_emissions + static_cast<long long>(t + 1) * classes;
+        for (int c = tid; c < classes; c += threads) __pipeline_memcpy_async(next + c, source + c, 4);
+      }
+      __pipeline_commit();
+    } else {
+      __syncthreads();
+      frame = row_emissions + static_cast<long long>(t) * classes;
+    }
+    const uint32_t* h1 = h1_of(current);
+    const uint32_t* h2 = h2_of(current);
+    const int* last = last_of(current);
+    const float* logp_b = blank_of(current);
+    const float* logp_nb = non_blank_of(current);
+
+    // Each beam's stay before merging; each live beam enters the table.
+    for (int k = tid; k < beams; k += threads) {
+      const float total = log_add(logp_b[k], logp_nb[k]);
+      const float last_emission = last[k] >= 0 ? frame[last[k]] : kNegInf;
+      step_total[k] = total;
+      stay_b[k] = total + frame[blank];
+      stay_nb[k] = logp_nb[k] + last_emission;
+      stay_total[k] = log_add(stay_b[k], stay_nb[k]);
+      int slot = -1;
+      if (total > kDeadBelow) {
+        const uint32_t mask = static_cast<uint32_t>(table_size - 1);
+        for (uint32_t s = table_slot(h1[k], h2[k], layout.table_bits);; s = (s + 1u) & mask) {
+          const int previous = atomicCAS(&table_beam[s], -1, k);
+          if (previous < 0) {
+            table_h1[s] = h1[k];
+            table_h2[s] = h2[k];
+            slot = static_cast<int>(s);
+            break;
+          }
+          // The claimant's hashes from the state, which its table entry may
+          // not hold yet.
+          if (h1[previous] == h1[k] && h2[previous] == h2[k]) {
+            atomicMax(&table_beam[s], k);
+            slot = static_cast<int>(s);
+            break;
+          }
+        }
+      }
+      slot_of[k] = slot;
+    }
+    if (tid == 0) {
+      select_prefix = 0ull;
+      select_mask = 0ull;
+      select_remaining = static_cast<unsigned>(beams);
+      winner_count = 0u;
+    }
+    __syncthreads();
+
+    // Every extension's key; a merge marks the stay's table slot consumed.
+    for (int index = tid; index < candidates; index += threads) {
+      const int k = index / classes;
+      const int c = index - k * classes;
+      if (c == blank) continue;
+      const float ext_nb = (c == last[k] ? logp_b[k] : step_total[k]) + frame[c];
+      int matched = -1, slot = 0;
+      if (step_total[k] > kDeadBelow)
+        matched = probe(table_beam, table_h1, table_h2, h1[k] * kHashP1 + static_cast<uint32_t>(c + 1),
+                        h2[k] * kHashP2 + static_cast<uint32_t>(c + 1), layout.table_bits, slot);
+      float total;
+      if (matched >= 0) {
+        table_consumed[slot] = 1;
+        total = log_add(stay_b[matched], log_add(ext_nb, stay_nb[matched]));
+      } else {
+        total = log_add(kNegInf, ext_nb);
+      }
+      keys[index] = order_key(total, index);
+    }
+    __syncthreads();
+    for (int k = tid; k < beams; k += threads) {
+      const bool consumed = slot_of[k] >= 0 && table_consumed[slot_of[k]] != 0;
+      const float total = consumed ? log_add(kNegInf, kNegInf) : stay_total[k];
+      keys[k * classes + blank] = order_key(total, k * classes + blank);
+    }
+    __syncthreads();
+
+    // Radix select of the K-th largest key, 8 bits a pass from the top. Warp
+    // 0 reads each pass's histogram and leaves it zeroed for the next.
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      const unsigned long long prefix = select_prefix, mask = select_mask;
+      for (int start = warp * 32; start < candidates; start += threads) {
+        const int index = start + lane;
+        const unsigned long long key = index < candidates ? keys[index] : 0ull;
+        const bool inside = index < candidates && (key & mask) == prefix;
+        const unsigned digit = inside ? static_cast<unsigned>(key >> shift) & 255u : 256u + lane;
+        const unsigned peers = __match_any_sync(kAllLanes, digit);
+        if (inside && lane == __ffs(peers) - 1) atomicAdd(&histogram[digit], static_cast<unsigned>(__popc(peers)));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // Lane l holds digits 255 - 8l down to 248 - 8l.
+        unsigned counts[8];
+        unsigned sum = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          counts[j] = histogram[255 - 8 * lane - j];
+          histogram[255 - 8 * lane - j] = 0u;
+          sum += counts[j];
+        }
+        unsigned inclusive = sum;
+#pragma unroll
+        for (int offset = 1; offset < 32; offset <<= 1) {
+          const unsigned below = __shfl_up_sync(kAllLanes, inclusive, offset);
+          if (lane >= offset) inclusive += below;
+        }
+        const unsigned remaining = select_remaining;
+        unsigned above = inclusive - sum;  // keys in higher digits
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (above < remaining && above + counts[j] >= remaining) {
+            const unsigned wanted = remaining - above;
+            select_prefix = prefix | static_cast<unsigned long long>(255 - 8 * lane - j) << shift;
+            select_mask = mask | 255ull << shift;
+            select_remaining = wanted;
+            select_done = counts[j] == wanted;
+          }
+          above += counts[j];
+        }
+      }
+      __syncthreads();
+      if (select_done) break;
+    }
+
+    // The winners: every key whose selected bits reach the prefix; each
+    // one's slot is the count of winners above it.
+    {
+      const unsigned long long prefix = select_prefix, mask = select_mask;
+      for (int index = tid; index < candidates; index += threads) {
+        const unsigned long long key = keys[index];
+        if ((key & mask) >= prefix) gathered[atomicAdd(&winner_count, 1u)] = key;
+      }
+    }
+    __syncthreads();
+    for (int w = tid; w < beams; w += threads) {
+      const unsigned long long key = gathered[w];
+      int rank = 0;
+      for (int other = 0; other < beams; ++other) rank += gathered[other] > key;
+      ranked[rank] = key;
+    }
+    __syncthreads();
+
+    // Slot s takes the s-th winner: its state, its backpointer and its token.
+    for (int s = tid; s < beams; s += threads) {
+      const unsigned long long key = ranked[s];
+      const int index = static_cast<int>(~static_cast<unsigned>(key));
+      const int parent = index / classes;
+      const int token = index - parent * classes;
+      const unsigned order = static_cast<unsigned>(key >> 32);
+      const float total = __uint_as_float(order & 0x80000000u ? order & 0x7fffffffu : ~order);
+      float b, nb;
+      uint32_t hash1 = h1[parent], hash2 = h2[parent];
+      int new_last = last[parent], parent_out = parent, token_out = -1;
+      if (token == blank) {
+        const bool consumed = slot_of[parent] >= 0 && table_consumed[slot_of[parent]] != 0;
+        b = consumed ? kNegInf : stay_b[parent];
+        nb = consumed ? kNegInf : stay_nb[parent];
+      } else {
+        const float ext_nb = (token == last[parent] ? logp_b[parent] : step_total[parent]) + frame[token];
+        hash1 = hash1 * kHashP1 + static_cast<uint32_t>(token + 1);
+        hash2 = hash2 * kHashP2 + static_cast<uint32_t>(token + 1);
+        int matched = -1, slot = 0;
+        if (step_total[parent] > kDeadBelow)
+          matched = probe(table_beam, table_h1, table_h2, hash1, hash2, layout.table_bits, slot);
+        const bool ext_is_rep = matched < 0 || ext_nb >= stay_total[matched];
+        b = matched >= 0 ? stay_b[matched] : kNegInf;
+        nb = matched >= 0 ? log_add(ext_nb, stay_nb[matched]) : ext_nb;
+        new_last = token;
+        parent_out = ext_is_rep ? parent : matched;
+        token_out = ext_is_rep ? token : -1;
+      }
+      const bool dead = total <= kDeadBelow;
+      blank_of(current ^ 1)[s] = dead ? kNegInf : b;
+      non_blank_of(current ^ 1)[s] = dead ? kNegInf : nb;
+      h1_of(current ^ 1)[s] = hash1;
+      h2_of(current ^ 1)[s] = hash2;
+      last_of(current ^ 1)[s] = new_last;
+      const long long out = (static_cast<long long>(t) * batch + row) * beams + s;
+      parents[out] = parent_out;
+      emitted[out] = token_out;
+    }
+    __syncthreads();
+    for (int s = tid; s < table_size; s += threads) {
+      table_beam[s] = -1;
+      table_consumed[s] = 0;
+    }
+    current ^= 1;
+  }
+  __syncthreads();
+
+  // Past its length a row keeps its beams: each slot is its own parent and
+  // emits nothing.
+  for (int index = tid; index < (time - length) * beams; index += threads) {
+    const int t = length + index / beams;
+    const int slot = index - (index / beams) * beams;
+    const long long out = (static_cast<long long>(t) * batch + row) * beams + slot;
+    parents[out] = slot;
+    emitted[out] = -1;
+  }
+  for (int k = tid; k < beams; k += threads)
+    scores[row * beams + k] = log_add(blank_of(current)[k], non_blank_of(current)[k]);
+}
+
+// Bytes of shared memory the wide kernel's row needs (workspace and staged
+// rows), and whether its workspace stays in shared memory.
+size_t wide_staged_bytes(int classes) {
+  return classes <= kStagedClassLimit ? 2 * sizeof(float) * static_cast<size_t>(classes) : 0;
+}
+
+bool wide_workspace_in_shared(int classes, int beams) {
+  return WideLayout(classes, beams).bytes + wide_staged_bytes(classes) <= kWideSharedLimit;
+}
+
+int launch_wide(const float* emissions, const int* lengths, int* parents, int* emitted, float* scores, int batch,
+                int time, int classes, int beams, int blank, void* workspace, cudaStream_t stream) {
+  const bool in_shared = wide_workspace_in_shared(classes, beams);
+  if (!in_shared && workspace == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t shared_bytes = (in_shared ? WideLayout(classes, beams).bytes : 0) + wide_staged_bytes(classes);
+  const cudaError_t status = cudaFuncSetAttribute(beam_search_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                  static_cast<int>(shared_bytes));
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const int wanted = max(beams * classes, beams);
+  const int threads = min(kWideThreads, max(64, (wanted + 31) / 32 * 32));
+  beam_search_wide_kernel<<<batch, threads, shared_bytes, stream>>>(
+      emissions, lengths, parents, emitted, scores, batch, time, classes, beams, blank,
+      static_cast<unsigned char*>(workspace), in_shared, wide_staged_bytes(classes) > 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Which kernel searches a [B, T, C] block at beam width K: 0 the block
 // kernel, 1 the warp kernel with one candidate a lane, 2 the warp kernel
-// with sorted lists. Shape alone decides.
+// with sorted lists, 3 the wide kernel. Shape alone decides.
 int route(int classes, int beams) {
+  if (beams > kMaxBeams) return 3;
   if (beams > kWarpMaxBeams || classes > kWarpMaxClasses) return 0;
   return beams * classes <= 32 ? 1 : 2;
 }
 
-// One thread per (row, beam): walks t from T - 1 down to 0 along the parent
-// chain, writing the token each step contributed to that hypothesis.
-__global__ void beam_backtrace_kernel(const int* __restrict__ parents, const int* __restrict__ emitted,
-                                      const int* __restrict__ lengths, int* __restrict__ collected, int batch,
-                                      int time, int beams) {
-  const int index = blockIdx.x * blockDim.x + threadIdx.x;
-  if (index >= batch * beams) return;
-  const int row = index / beams;
-  const int beam = index - row * beams;
-  const int length = lengths[row];
-  int cursor = beam;
-  for (int t = time - 1; t >= 0; --t) {
-    const long long base = (static_cast<long long>(t) * batch + row) * beams;
-    int token = -1;
-    if (t < length) {
-      token = emitted[base + cursor];
-      cursor = parents[base + cursor];
+// ---------------------------------------------------------------- backtrace
+
+// One block per row. The chase of a row's L valid steps, one dependent load
+// a step, is cut into segments of `segment_steps` steps: (1) every (segment,
+// beam) pair chases its segment from the segment's top, giving the segment's
+// map of cursors (where a cursor entering at the top leaves at the bottom);
+// (2) each beam composes the maps from the last segment down, giving the
+// cursor that enters each segment; (3) every pair replays its segment from
+// that cursor, writing its tokens. The dependent chain is 2 * segment_steps
+// + segments loads instead of L. The maps and entry cursors sit in shared
+// memory, and so do the row's parents and emitted tokens when `staged`
+// (copied in first, every load in flight at once), so that the chain runs
+// at shared-memory latency; otherwise they are read from device memory.
+__global__ void __launch_bounds__(kBacktraceThreads)
+beam_backtrace_kernel(const int* __restrict__ parents, const int* __restrict__ emitted,
+                      const int* __restrict__ lengths, int* __restrict__ collected, int batch, int time, int beams,
+                      int segment_steps, int max_pairs, int staged) {
+  // maps and entry cursors, [max_pairs] each; then, when staged, the row's
+  // parents and emitted tokens, [T][K] each.
+  extern __shared__ int backtrace_shared[];
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int length = min(max(lengths[row], 0), time);
+  const long long step_stride = static_cast<long long>(batch) * beams;
+  const long long row_offset = static_cast<long long>(row) * beams;
+
+  // Past its length a row emits nothing: no chase.
+  for (int index = tid; index < (time - length) * beams; index += kBacktraceThreads) {
+    const int t = length + index / beams;
+    collected[t * step_stride + row_offset + index % beams] = -1;
+  }
+  const int segments = (length + segment_steps - 1) / segment_steps;
+  const int pairs = segments * beams;
+  int* maps = backtrace_shared;
+  int* entries = maps + max_pairs;
+  const int* parent_rows = parents + row_offset;
+  const int* emitted_rows = emitted + row_offset;
+  long long stride = step_stride;
+  if (staged) {
+    int* staged_parents = entries + max_pairs;
+    int* staged_emitted = staged_parents + time * beams;
+    for (int index = tid; index < length * beams; index += kBacktraceThreads) {
+      const long long source = (index / beams) * step_stride + row_offset + index % beams;
+      staged_parents[index] = __ldg(parents + source);
+      staged_emitted[index] = __ldg(emitted + source);
     }
-    collected[base + beam] = token;
+    __syncthreads();
+    parent_rows = staged_parents;
+    emitted_rows = staged_emitted;
+    stride = beams;
+  }
+
+  if (segments > 1) {
+    for (int pair = tid; pair < pairs; pair += kBacktraceThreads) {
+      const int segment = pair / beams;
+      const int start = segment * segment_steps;
+      int cursor = pair - segment * beams;
+      for (int t = min(start + segment_steps, length) - 1; t >= start; --t) cursor = parent_rows[t * stride + cursor];
+      maps[pair] = cursor;
+    }
+    __syncthreads();
+    for (int beam = tid; beam < beams; beam += kBacktraceThreads) {
+      int cursor = beam;
+      entries[(segments - 1) * beams + beam] = cursor;
+      for (int segment = segments - 1; segment > 0; --segment) {
+        cursor = maps[segment * beams + cursor];
+        entries[(segment - 1) * beams + beam] = cursor;
+      }
+    }
+    __syncthreads();
+  }
+  for (int pair = tid; pair < pairs; pair += kBacktraceThreads) {
+    const int segment = pair / beams;
+    const int beam = pair - segment * beams;
+    const int start = segment * segment_steps;
+    int cursor = segments > 1 ? entries[pair] : beam;
+    for (int t = min(start + segment_steps, length) - 1; t >= start; --t) {
+      collected[t * step_stride + row_offset + beam] = emitted_rows[t * stride + cursor];
+      cursor = parent_rows[t * stride + cursor];
+    }
   }
 }
 
@@ -827,21 +1279,32 @@ __global__ void beam_backtrace_kernel(const int* __restrict__ parents, const int
 
 // The kernel beam_search_forward launches for C classes at beam width K: 0
 // the block kernel, 1 or 2 the warp kernel (one candidate a lane, or sorted
-// lists).
+// lists), 3 the wide kernel.
 extern "C" int beam_search_route(int classes, int beams) { return route(classes, beams); }
 
+// Bytes of global scratch beam_search_forward needs for each batch row at
+// this shape: 0 unless the wide kernel's workspace exceeds shared memory.
+extern "C" long long beam_search_workspace_bytes(int classes, int beams) {
+  if (route(classes, beams) != 3 || wide_workspace_in_shared(classes, beams)) return 0;
+  return static_cast<long long>(WideLayout(classes, beams).bytes);
+}
+
 // emissions: [B, T, C] f32 contiguous log-probabilities; lengths: [B] int32;
-// parents, emitted: [T, B, K] int32; scores: [B, K] f32. 1 <= K <= 16,
-// 1 <= C <= 32767, 0 <= blank < C. Returns cudaGetLastError() after the
-// launch (0 on success).
+// parents, emitted: [T, B, K] int32; scores: [B, K] f32; workspace: B times
+// beam_search_workspace_bytes(C, K) bytes of 16-byte-aligned device memory
+// (null when that is 0). K >= 1, 1 <= C <= 32767, 0 <= blank < C. Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int beam_search_forward(const float* emissions, const int* lengths, int* parents, int* emitted,
                                    float* scores, int batch, int time, int classes, int beams, int blank,
-                                   void* stream) {
+                                   void* workspace, void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
-  if (beams < 1 || beams > kMaxBeams || classes < 1 || classes > 32767 || blank < 0 || blank >= classes)
+  if (beams < 1 || classes < 1 || classes > 32767 || blank < 0 || blank >= classes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const int path = route(classes, beams);
+  if (path == 3)
+    return launch_wide(emissions, lengths, parents, emitted, scores, batch, time, classes, beams, blank, workspace,
+                       cuda_stream);
   if (path == 1)
     return launch_warp_beams<true>(emissions, lengths, parents, emitted, scores, batch, time, classes, beams, blank, cuda_stream);
   if (path == 2)
@@ -853,14 +1316,30 @@ extern "C" int beam_search_forward(const float* emissions, const int* lengths, i
   return launch<16>(emissions, lengths, parents, emitted, scores, batch, time, classes, beams, blank, cuda_stream);
 }
 
-// parents, emitted, collected: [T, B, K] int32; lengths: [B] int32.
+// parents, emitted, collected: [T, B, K] int32 contiguous; lengths: [B]
+// int32.
 extern "C" int beam_backtrace_forward(const int* parents, const int* emitted, const int* lengths, int* collected,
                                       int batch, int time, int beams, void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const int total = batch * beams;
-  if (total == 0 || time == 0) return 0;
-  beam_backtrace_kernel<<<(total + threads - 1) / threads, threads, 0, cuda_stream>>>(
-      parents, emitted, lengths, collected, batch, time, beams);
+  if (batch == 0 || time == 0 || beams == 0) return 0;
+  // Segments of about sqrt(T / 2) steps minimise the chain 2 S + T / S; at
+  // most kBacktraceSegmentPairs (segment, beam) pairs keep the maps small
+  // (one segment, a plain chase, when K alone exceeds it).
+  int segment_steps = max(1, static_cast<int>(ceil(sqrt(time / 2.0))));
+  segment_steps = max(segment_steps, static_cast<int>((static_cast<long long>(time) * beams + kBacktraceSegmentPairs - 1) /
+                                                      kBacktraceSegmentPairs));
+  segment_steps = min(segment_steps, time);
+  const int segments = (time + segment_steps - 1) / segment_steps;
+  const int max_pairs = segments > 1 ? segments * beams : 0;
+  const int staged = static_cast<long long>(time) * beams <= kBacktraceStagedInts;
+  const size_t shared_bytes =
+      sizeof(int) * (2 * static_cast<size_t>(max_pairs) + (staged ? 2 * static_cast<size_t>(time) * beams : 0));
+  if (shared_bytes > 48 * 1024) {
+    const cudaError_t status = cudaFuncSetAttribute(beam_backtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                    static_cast<int>(shared_bytes));
+    if (status != cudaSuccess) return static_cast<int>(status);
+  }
+  beam_backtrace_kernel<<<batch, kBacktraceThreads, shared_bytes, cuda_stream>>>(
+      parents, emitted, lengths, collected, batch, time, beams, segment_steps, max_pairs, staged);
   return static_cast<int>(cudaGetLastError());
 }

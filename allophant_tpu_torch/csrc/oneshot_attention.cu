@@ -67,16 +67,18 @@ constexpr float kTinyTotal = 1e-30f;
 constexpr int kRowsPerThread = 4;            // query rows per thread
 constexpr int kColsPerThread = kBlockK / 8;  // key columns per thread in the score tile
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 oneshot_attention_kernel(const float* __restrict__ query, const float* __restrict__ key,
                          const float* __restrict__ value, const float* __restrict__ key_bias,
-                         float* __restrict__ out, int time, int heads,
+                         float* __restrict__ out, int time, int heads, int head_columns,
                          long long q_batch_stride, long long q_time_stride,
                          long long k_batch_stride, long long k_time_stride,
                          long long v_batch_stride, long long v_time_stride,
                          long long o_batch_stride, long long o_time_stride,
                          float score_scale, float bias_scale) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
   static_assert(HD % 8 == 0, "head_dim must be a multiple of 8");
   constexpr int kOutCols = HD / 8;  // output columns per thread
   constexpr int kQkStride = HD + 1;  // +1 float: conflict-free column reads
@@ -95,18 +97,19 @@ oneshot_attention_kernel(const float* __restrict__ query, const float* __restric
   const int query_start = blockIdx.x * kBlockQ;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int head_offset = head * HD;
+  const int head_offset = head * columns;
 
   const float* q_base = query + batch * q_batch_stride + head_offset;
   const float* k_base = key + batch * k_batch_stride + head_offset;
   const float* v_base = value + batch * v_batch_stride + head_offset;
   const float* bias_base = key_bias + static_cast<long long>(batch) * time;
 
+  // Columns past the head's own width (a head run at a wider HD) load as 0.
   for (int index = tid; index < kBlockQ * HD; index += kThreads) {
     const int row = index / HD;
     const int col = index % HD;
     const int t = query_start + row;
-    q_tile[row * kQkStride + col] = t < time ? q_base[t * q_time_stride + col] : 0.0f;
+    q_tile[row * kQkStride + col] = t < time && col < columns ? q_base[t * q_time_stride + col] : 0.0f;
   }
 
   float row_max[kRowsPerThread];
@@ -126,7 +129,7 @@ oneshot_attention_kernel(const float* __restrict__ query, const float* __restric
       const int row = index / HD;
       const int col = index % HD;
       const int t = key_start + row;
-      const bool inside = t < time;
+      const bool inside = t < time && col < columns;
       k_tile[row * kQkStride + col] = inside ? k_base[t * k_time_stride + col] : 0.0f;
       v_tile[row * HD + col] = inside ? v_base[t * v_time_stride + col] : 0.0f;
     }
@@ -214,7 +217,8 @@ oneshot_attention_kernel(const float* __restrict__ query, const float* __restric
     if (t >= time) continue;
     const float inverse_total = 1.0f / fmaxf(row_sum[i], kTinyTotal);
 #pragma unroll
-    for (int j = 0; j < kOutCols; ++j) o_base[t * o_time_stride + lane_col + 8 * j] = acc[i][j] * inverse_total;
+    for (int j = 0; j < kOutCols; ++j)
+      if (lane_col + 8 * j < columns) o_base[t * o_time_stride + lane_col + 8 * j] = acc[i][j] * inverse_total;
   }
 }
 
@@ -226,21 +230,24 @@ constexpr size_t shared_bytes() {
 
 // ------------------------------------------------------- bf16, tensor cores
 
-using tiles::kStride;
-using tiles::kTileElements;
 using bf16 = __nv_bfloat16;
 
-__global__ void __launch_bounds__(kThreads)
+template <int HD, bool kPadded>
+__global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restrict__ key,
                              const bf16* __restrict__ value, const float* __restrict__ key_bias,
-                             bf16* __restrict__ out, int time, long long q_batch_stride,
+                             bf16* __restrict__ out, int time, int head_columns, long long q_batch_stride,
                              long long q_time_stride, long long k_batch_stride, long long k_time_stride,
                              long long v_batch_stride, long long v_time_stride, long long o_batch_stride,
                              long long o_time_stride, float score_scale, float bias_scale) {
+  // The head's own width: the constant HD unless it runs padded.
+  const int columns = kPadded ? head_columns : HD;
+  constexpr int kTileElements = tiles::Head<HD>::kTileElements;
+  constexpr int kAccumulators = tiles::Head<HD>::kAccumulators;
   extern __shared__ __align__(16) unsigned char shared_bytes_raw[];
-  bf16* q_tile = reinterpret_cast<bf16*>(shared_bytes_raw);  // [64][kStride]
-  bf16* k_tiles = q_tile + kTileElements;                      // 2 x [64][kStride]
-  bf16* v_tiles = k_tiles + 2 * kTileElements;                 // 2 x [64][kStride]
+  bf16* q_tile = reinterpret_cast<bf16*>(shared_bytes_raw);  // [64][HD + 8]
+  bf16* k_tiles = q_tile + kTileElements;                      // 2 x [64][HD + 8]
+  bf16* v_tiles = k_tiles + 2 * kTileElements;                 // 2 x [64][HD + 8]
   __shared__ float bias_tiles[2][kBlockK];
   __shared__ int scratch[kThreads / 32];
 
@@ -249,7 +256,7 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
   const int group = lane >> 2;   // accumulator rows group and group + 8
   const int column = lane & 3;   // accumulator columns 2 * column, 2 * column + 1
   const int query_start = blockIdx.x * kBlockQ;
-  const int head_offset = blockIdx.y * tiles::kHeadDim;
+  const int head_offset = blockIdx.y * columns;
   const int batch = blockIdx.z;
 
   const bf16* k_base = key + batch * k_batch_stride + head_offset;
@@ -258,8 +265,8 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
 
   auto load_keys = [&](int tile, int buffer) {
     const int key_start = tile * kBlockK;
-    tiles::copy_tile_async(k_tiles + buffer * kTileElements, k_base, k_time_stride, key_start, time);
-    tiles::copy_tile_async(v_tiles + buffer * kTileElements, v_base, v_time_stride, key_start, time);
+    tiles::copy_tile_async<HD, kPadded>(k_tiles + buffer * kTileElements, k_base, k_time_stride, key_start, time, columns);
+    tiles::copy_tile_async<HD, kPadded>(v_tiles + buffer * kTileElements, v_base, v_time_stride, key_start, time, columns);
     tiles::commit_copies();
     for (int index = threadIdx.x; index < kBlockK; index += kThreads) {
       const int t = key_start + index;
@@ -269,16 +276,17 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
     }
   };
 
-  tiles::copy_tile_async(q_tile, query + batch * q_batch_stride + head_offset, q_time_stride, query_start, time);
+  tiles::copy_tile_async<HD, kPadded>(q_tile, query + batch * q_batch_stride + head_offset, q_time_stride, query_start, time,
+                             columns);
   load_keys(0, 0);  // the query tile joins the first group
   const int key_tiles = tiles::key_tiles_needed(tiles::last_valid_key(bias_row, time, scratch), time);
 
-  uint32_t q_fragments[4][4];
-  float acc[8][4];
+  uint32_t q_fragments[tiles::Head<HD>::kFragments][4];
+  float acc[kAccumulators][4];
   float row_max[2] = {-INFINITY, -INFINITY};  // rows group, group + 8
   float row_sum[2] = {0.0f, 0.0f};            // this lane's columns only
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kAccumulators; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 
@@ -291,7 +299,7 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
       tiles::wait_copies<0>();
     }
     __syncthreads();
-    if (tile == 0) tiles::load_a_fragments(q_fragments, q_tile, 16 * warp, lane);
+    if (tile == 0) tiles::load_a_fragments<HD>(q_fragments, q_tile, 16 * warp, lane);
     const bf16* k_tile = k_tiles + buffer * kTileElements;
     const bf16* v_tile = v_tiles + buffer * kTileElements;
     const float* bias_tile = bias_tiles[buffer];
@@ -301,7 +309,7 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) scores[j][e] = 0.0f;
-    tiles::product_rows(scores, q_fragments, k_tile, lane);
+    tiles::product_rows<HD>(scores, q_fragments, k_tile, lane);
 
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -330,11 +338,15 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
         const float weight = exp2f((scores[j][e] - row_max[e >> 1]) + bias_tile[8 * j + 2 * column + (e & 1)]);
         row_sum[e >> 1] += weight;
         scores[j][e] = weight;
-        acc[j][e] *= rescale[e >> 1];
+        if (j < kAccumulators) acc[j][e] *= rescale[e >> 1];
       }
+#pragma unroll
+    for (int j = 8; j < kAccumulators; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= rescale[e >> 1];
     uint32_t p_fragments[4][4];
     tiles::pack_a_fragments(p_fragments, scores);
-    tiles::product_columns(acc, p_fragments, v_tile, lane);
+    tiles::product_columns<HD>(acc, p_fragments, v_tile, lane);
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
 
@@ -347,7 +359,8 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
     if (t >= time) continue;
     const float inverse_total = 1.0f / fmaxf(row_sum[r], kTinyTotal);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kAccumulators; ++j) {
+      if (8 * j >= columns) break;  // columns past the head's own width
       const __nv_bfloat162 pair =
           __floats2bfloat162_rn(acc[j][2 * r] * inverse_total, acc[j][2 * r + 1] * inverse_total);
       *reinterpret_cast<__nv_bfloat162*>(o_base + t * o_time_stride + 8 * j + 2 * column) = pair;
@@ -355,58 +368,62 @@ oneshot_attention_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
   }
 }
 
-constexpr size_t kMmaSharedBytes = 5 * tiles::kTileBytes;
-
 int launch_f32(const void* query, const void* key, const void* value, const float* key_bias, void* out, int batch,
-               int time, int heads, const long long* strides, float score_scale, float bias_scale,
+               int time, int heads, int head_dim, const long long* strides, float score_scale, float bias_scale,
                cudaStream_t stream) {
-  constexpr size_t bytes = shared_bytes<64>();
-  cudaError_t status = cudaFuncSetAttribute(oneshot_attention_kernel<64>,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            static_cast<int>(bytes));
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((time + kBlockQ - 1) / kBlockQ, heads, batch);
-  oneshot_attention_kernel<64><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(query), static_cast<const float*>(key), static_cast<const float*>(value),
-      key_bias, static_cast<float*>(out), time, heads, strides[0], strides[1], strides[2], strides[3],
-      strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale);
-  return static_cast<int>(cudaGetLastError());
+  return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
+    constexpr int HD = decltype(width)::value;
+    constexpr bool kPadded = decltype(padded)::value;
+    constexpr size_t bytes = shared_bytes<HD>();
+    cudaError_t status = cudaFuncSetAttribute(oneshot_attention_kernel<HD, kPadded>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const dim3 grid((time + kBlockQ - 1) / kBlockQ, heads, batch);
+    oneshot_attention_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const float*>(query), static_cast<const float*>(key), static_cast<const float*>(value),
+        key_bias, static_cast<float*>(out), time, heads, head_dim, strides[0], strides[1], strides[2], strides[3],
+        strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 int launch_bf16(const void* query, const void* key, const void* value, const float* key_bias, void* out, int batch,
-                int time, int heads, const long long* strides, float score_scale, float bias_scale,
+                int time, int heads, int head_dim, const long long* strides, float score_scale, float bias_scale,
                 cudaStream_t stream) {
-  cudaError_t status = cudaFuncSetAttribute(oneshot_attention_mma_kernel,
-                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                            static_cast<int>(kMmaSharedBytes));
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((time + kBlockQ - 1) / kBlockQ, heads, batch);
-  oneshot_attention_mma_kernel<<<grid, kThreads, kMmaSharedBytes, stream>>>(
-      static_cast<const bf16*>(query), static_cast<const bf16*>(key), static_cast<const bf16*>(value), key_bias,
-      static_cast<bf16*>(out), time, strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-      strides[6], strides[7], score_scale, bias_scale);
-  return static_cast<int>(cudaGetLastError());
+  return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
+    constexpr int HD = decltype(width)::value;
+    constexpr bool kPadded = decltype(padded)::value;
+    constexpr size_t bytes = 5 * tiles::Head<HD>::kTileBytes;
+    cudaError_t status = cudaFuncSetAttribute(oneshot_attention_mma_kernel<HD, kPadded>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const dim3 grid((time + kBlockQ - 1) / kBlockQ, heads, batch);
+    oneshot_attention_mma_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
+        static_cast<const bf16*>(query), static_cast<const bf16*>(key), static_cast<const bf16*>(value), key_bias,
+        static_cast<bf16*>(out), time, head_dim, strides[0], strides[1], strides[2], strides[3], strides[4],
+        strides[5], strides[6], strides[7], score_scale, bias_scale);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 // strides: q, k, v, out batch and time strides in elements, in that order
 // (8 values); the head-dim axis must be contiguous, and for bf16 every head
-// row must start on a 16-byte boundary (the wrapper checks both). dtype:
-// 0 = f32, 1 = bf16. Returns cudaGetLastError() after the launch (0 on success).
+// row must start on a 16-byte boundary (the wrapper checks both). head_dim:
+// a multiple of 8 from 8 to 128 (tiles::with_head_width). dtype: 0 = f32,
+// 1 = bf16. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int oneshot_attention_forward(const void* query, const void* key, const void* value,
                                          const float* key_bias, void* out, int batch, int time,
                                          int heads, int head_dim, const long long* strides,
                                          float score_scale, float bias_scale, int dtype,
                                          void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
-  // Every released wav2vec2 / XLS-R encoder has 64-wide heads.
-  if (head_dim != tiles::kHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_f32(query, key, value, key_bias, out, batch, time, heads, strides, score_scale, bias_scale,
-                      cuda_stream);
+    return launch_f32(query, key, value, key_bias, out, batch, time, heads, head_dim, strides, score_scale,
+                      bias_scale, cuda_stream);
   if (dtype == 1)
-    return launch_bf16(query, key, value, key_bias, out, batch, time, heads, strides, score_scale, bias_scale,
-                       cuda_stream);
+    return launch_bf16(query, key, value, key_bias, out, batch, time, heads, head_dim, strides, score_scale,
+                       bias_scale, cuda_stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

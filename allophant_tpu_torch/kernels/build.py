@@ -31,8 +31,9 @@ NVCC_FLAGS = (
 )
 
 _C_POINTER = ctypes.c_void_p
-# Entry point -> (library, C symbol, argtypes); every pointer and the stream
-# are c_void_p, so ctypes never truncates them to 32-bit ints.
+# Entry point -> (library, C symbol, argtypes[, restype]); every pointer and
+# the stream are c_void_p, so ctypes never truncates them to 32-bit ints. The
+# restype is the cudaGetLastError() code, a c_int, unless given.
 _SIGNATURES = {
     "oneshot_attention": (
         "oneshot_attention",
@@ -75,8 +76,9 @@ _SIGNATURES = {
     "beam_search": (
         "beam_search",
         "beam_search_forward",
-        [_C_POINTER] * 5 + [ctypes.c_int] * 5 + [_C_POINTER],
+        [_C_POINTER] * 5 + [ctypes.c_int] * 5 + [_C_POINTER] * 2,
     ),
+    "beam_search_workspace_bytes": ("beam_search", "beam_search_workspace_bytes", [ctypes.c_int] * 2, ctypes.c_longlong),
     "beam_backtrace": (
         "beam_search",
         "beam_backtrace_forward",
@@ -155,18 +157,18 @@ def build_all() -> float:
 
 
 def load_kernel(name: str):
-    """The C entry point ``name`` (building its library if needed), with
-    argtypes and an int restype (the cudaGetLastError() code) declared."""
+    """The C entry point ``name`` (building its library if needed), with its
+    argtypes and restype declared."""
     with _lock:
         function = _loaded.get(name)
         if function is None:
-            library, symbol, argtypes = _SIGNATURES[name]
+            library, symbol, argtypes, *restype = _SIGNATURES[name]
             path = library_path(library)
             if not path.exists():
                 _compile([library])
             function = getattr(ctypes.CDLL(str(path)), symbol)
             function.argtypes = argtypes
-            function.restype = ctypes.c_int
+            function.restype = restype[0] if restype else ctypes.c_int
             _loaded[name] = function
     return function
 

@@ -23,7 +23,8 @@ from allophant_tpu_torch.kernels.build import check_launch, load_kernel
 _TAPS = 10
 _STRIDE = 5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_CHANNELS = 512  # every released wav2vec2 / XLS-R feature extractor
+#: The most channels the kernel takes (wav2vec2 and XLS-R extractors have 512).
+MAX_CHANNELS = 1024
 
 
 def _trim(audio: torch.Tensor) -> torch.Tensor:
@@ -41,19 +42,20 @@ def reference_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float, out
 
 
 def fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, out_dtype=torch.bfloat16):
-    """``audio``: [B, S] f32; ``kernel``: [10, C] f32. Returns [B, S//5 - 1, C]
-    in ``out_dtype``. ``fused_frame_conv.launches`` counts kernel launches."""
+    """``audio``: [B, S] f32; ``kernel``: [10, C] f32 (the kernel takes C up to
+    ``MAX_CHANNELS``). Returns [B, S//5 - 1, C] in ``out_dtype``.
+    ``fused_frame_conv.launches`` counts kernel launches."""
     if audio.device.type == "cpu":
         return reference_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps, out_dtype)
     if audio.device.type != "cuda":
         raise ValueError(f"fused_frame_conv runs on CPU or CUDA tensors, not {audio.device}")
     audio = _trim(audio)
     batch, samples = audio.shape
-    channels = kernel.shape[1]
     if audio.dtype != torch.float32 or audio.stride(1) != 1:
         raise ValueError("frame encoder kernel takes f32 audio with contiguous samples")
-    if kernel.shape != (_TAPS, _CHANNELS):
-        raise ValueError(f"frame encoder kernel takes a [10, {_CHANNELS}] kernel, got {tuple(kernel.shape)}")
+    if kernel.ndim != 2 or kernel.shape[0] != _TAPS or not 1 <= kernel.shape[1] <= MAX_CHANNELS:
+        raise ValueError(f"frame encoder kernel takes a [10, C] kernel with 1 <= C <= {MAX_CHANNELS}, got {tuple(kernel.shape)}")
+    channels = kernel.shape[1]
     if out_dtype not in _DTYPE_CODES:
         raise ValueError(f"frame encoder kernel writes f32 or bf16, not {out_dtype}")
     parameters = [

@@ -7,8 +7,9 @@ Each ``*_attention*`` / ``dropout_mask_bits`` wrapper launches its CUDA kernel
 (``csrc/oneshot_attention.cu``, ``csrc/attention_dropout.cu``,
 ``csrc/attention_backward.cu``) for CUDA tensors and runs its plain twin
 (``reference_*``) for CPU tensors; a shape or dtype a kernel does not take
-raises. The kernels serve every sequence length, so the TPU's plan tables
-(bounded by VMEM) have no counterpart. ``OneshotAttention`` and
+raises. The kernels serve every sequence length and every head width that is
+a multiple of 8 up to ``MAX_HEAD_DIM`` (``kernel_head_dim``), so the TPU's
+plan tables (bounded by VMEM) have no counterpart. ``OneshotAttention`` and
 ``OneshotDropoutAttention`` are the autograd functions the encoder calls.
 
 The dropout mask is the port's own: Mosaic's PRNG stream cannot be reproduced
@@ -36,7 +37,8 @@ LOG2E = 1.4426950408889634
 # Softmax denominator clamp: a fully padded (zero-length) row stays finite.
 TINY_TOTAL = 1e-30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 64  # every released wav2vec2 / XLS-R encoder
+#: The widest head the kernels take (XLS-R 2B's 120-wide heads run as 128).
+MAX_HEAD_DIM = 128
 _ROW_ALIGNMENT = 16  # bytes: the bf16 kernels copy and read 16-byte rows
 
 _MASK32 = 0xFFFFFFFF
@@ -214,15 +216,29 @@ def check_row_alignment(name: str, shape, strides, storage_offset: int, item_siz
             raise ValueError(f"{name}: a {label} stride of {strides[axis]} elements is not a multiple of {_ROW_ALIGNMENT} bytes")
 
 
-def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> None:
-    """Raises on what the CUDA kernels do not take."""
+def kernel_head_dim(name: str, model_dim: int, heads: int) -> int:
+    """The head width of [B, T, H*hd] inputs, which the kernels take when it is
+    a multiple of 8 from 8 to ``MAX_HEAD_DIM`` (instantiated at 32, 64, 80, 96
+    and 128; any other width runs as the next of them, zero-padded). Raises a
+    ValueError on any other."""
+    if heads < 1 or model_dim % heads:
+        raise ValueError(f"{name}: a width of {model_dim} does not split into {heads} heads")
+    head_dim = model_dim // heads
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name} kernel takes head widths that are multiples of 8 up to {MAX_HEAD_DIM}, got {head_dim}"
+        )
+    return head_dim
+
+
+def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> int:
+    """Raises on what the CUDA kernels do not take; returns the head width."""
     if query.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {query.device}")
     batch, time, model_dim = query.shape
     if query.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name} kernel takes f32 or bf16, not {query.dtype}")
-    if model_dim != heads * _HEAD_DIM:
-        raise ValueError(f"{name} kernel takes head_dim {_HEAD_DIM}, got {model_dim}/{heads}")
+    head_dim = kernel_head_dim(name, model_dim, heads)
     for tensor in (query, *others):
         if tensor.shape != query.shape or tensor.dtype != query.dtype or tensor.device != query.device:
             raise ValueError(f"{name}: every input must match query in shape, dtype and device")
@@ -234,6 +250,7 @@ def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> None
                 raise ValueError(f"{name}: the bf16 kernels need a {_ROW_ALIGNMENT}-byte-aligned data pointer")
     if key_bias.shape != (batch, time) or key_bias.dtype != torch.float32 or key_bias.device != query.device:
         raise ValueError(f"{name}: key_bias must be f32 [B, T] on the query's device")
+    return head_dim
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -257,7 +274,7 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
     anything it does not take). ``oneshot_attention.launches`` counts launches."""
     if query.device.type == "cpu":
         return reference_oneshot(query, key, value, key_bias, sm_scale, heads)
-    _check_kernel_inputs("oneshot_attention", query, (key, value), key_bias, heads)
+    head_dim = _check_kernel_inputs("oneshot_attention", query, (key, value), key_bias, heads)
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     out = torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device)
@@ -267,7 +284,7 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
     with torch.cuda.device(query.device):
         status = forward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-            batch, time, heads, _HEAD_DIM, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
+            batch, time, heads, head_dim, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, _DTYPE_CODES[query.dtype],
             torch.cuda.current_stream(query.device).cuda_stream,
         )
@@ -286,7 +303,7 @@ def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scal
     _check_rate(rate)
     if query.device.type == "cpu":
         return reference_oneshot_dropout(query, key, value, key_bias, seeds, sm_scale, heads, rate)
-    _check_kernel_inputs("oneshot_dropout_attention", query, (key, value), key_bias, heads)
+    head_dim = _check_kernel_inputs("oneshot_dropout_attention", query, (key, value), key_bias, heads)
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     out = torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device)
@@ -296,7 +313,7 @@ def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scal
     with torch.cuda.device(query.device):
         status = forward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-            batch, time, heads, _HEAD_DIM, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
+            batch, time, heads, head_dim, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, *_u32_seeds(seeds), keep_threshold(rate), _keep_probability(rate),
             _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
         )
@@ -318,7 +335,7 @@ def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optiona
         _check_rate(rate)
     if query.device.type == "cpu":
         return reference_oneshot_backward(query, key, value, grad, key_bias, seeds, sm_scale, heads, rate)
-    _check_kernel_inputs("oneshot_attention_backward", query, (key, value, grad), key_bias, heads)
+    head_dim = _check_kernel_inputs("oneshot_attention_backward", query, (key, value, grad), key_bias, heads)
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     outputs = [torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device) for _ in range(3)]
@@ -333,7 +350,7 @@ def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optiona
         status = backward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(), key_bias.data_ptr(),
             *(tensor.data_ptr() for tensor in outputs), stats.data_ptr(),
-            batch, time, heads, _HEAD_DIM,
+            batch, time, heads, head_dim,
             ctypes.cast(_strides(query, key, value, grad, *outputs), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, sm_scale, seed0, seed1, threshold, inverse_keep, int(rate is not None),
             _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,

@@ -7,20 +7,25 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
   2. build of every CUDA kernel from csrc/ (one nvcc per source, in parallel),
      then the count of tensor-core instructions (HMMA, HGMMA) in the SASS
-     (cuobjdump) of K1's, K5's and K4's libraries, which must not be 0;
+     (cuobjdump) of K1's, K5's and K4's libraries, which must not be 0, and
+     the SASS instructions of K2's frame loop per output element;
   3. kernels: each kernel against its plain PyTorch twin on the card, in bf16
      and f32, at the serving shapes and beyond (one-shot attention at
      T = 511, 512, 1536 and 6400 frames with a zero-length and a ragged row,
      and at T = 512 with rows ending on each side of the 64-key tile edges;
      bit-equal over two calls), with kernel, twin and library times (medians
      of three rounds) and the roofline bound;
+     K2 also at C = 100, 64, 1024 and 1, with its time per request and per
+     training step;
      Beam kernels: the CTC prefix beam search (K3) and its backtrace against
      their plain versions, integer-equal, at the serving shapes (B = 8,
      T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
      request, a 2400-class inventory, T = 2 and 37, K = 1, 2 and 8, the
      widest class count (32767), a blank index of 3, exact ties (uniform and
-     quantised emissions) and each side of the warp kernel's limits, every
-     case naming the kernel its shape routes to;
+     quantised emissions) and each side of the warp kernel's limits; the
+     wide kernel at K = 17, 32, 64 and 100 on C = 4 and 40 with ties, and
+     with its workspace in global memory (2400 and 32767 classes), scores
+     bit-equal; every case naming the kernel its shape routes to;
      Training kernels: the attention-dropout forward (K5) and the fused
      attention backward (K4, with dropout and without) against their twins
      in bf16 and f32 at the training shape (B = 8, T = 499, H = 16, strided
@@ -28,6 +33,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      at T = 512 with rows ending on each side of the 64-key tile edges, K4
      also against autograd of the forward twins, each bit-equal over two
      calls; the dropout-mask kernel (K6) integer-equal to its twin;
+     Head widths: K1, K5 and K4 at 32, 80, 120 and 128 in bf16 and f32
+     against their twins (K5 and K4 bit-equal over two calls), widths 136
+     and 100 raising, and bf16 times at 16 heads of each width; library
+     times (scaled_dot_product_attention) with the backend pinned and named;
   4. serve: the full-width flagship (XLS-R 300M + hierarchical head, seeded
      random weights) under the default "mixed" preset answers three requests
      through Estimator.predict_decoded, with the kernel launch counters read
@@ -36,15 +45,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      Estimator.predict_beam_decoded (all 38 heads, beam width 4), launch
      counters read around each; the first request's log-probs from the card
      are searched on the CPU, and the grids must be equal;
-  6. float32: one 2 s request in "float32" on the card and on the CPU (twins),
+  6. wide heads: the flagship head on a 2-layer encoder of XLS-R 1B's width
+     (16 heads of 80) answers one greedy request and the same request at
+     beam widths 17, 32, 64 and 100, launch counters read around each; each
+     beam grid equals the CPU search of the card's log-probs;
+  7. float32: one 2 s request in "float32" on the card and on the CPU (twins),
      greedy and beam grids equal;
-  7. train: the full-width training flagship ("mixed", f32 master weights,
+  8. train: the full-width training flagship ("mixed", f32 master weights,
      the flagship's dropout, Adam, schedule, clipping and frozen feature
      extractor) takes three steps through make_train_step at A = 2, B = 8,
      10 s, all 37 CTC heads, with launch counters read around each step and
      the plain twins forbidden; the step time, audio-s/s and peak memory are
      printed, then one make_eval_step call;
-  8. train float32: one deterministic step of a full-width 4-layer flagship
+  9. train float32: one deterministic step of a full-width 4-layer flagship
      on the card and on the CPU: metrics, gradients and parameters compared.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
@@ -104,6 +117,29 @@ def median_ms(function, iterations: int, rounds: int = 3) -> float:
     return float(np.median([cuda_ms(function, iterations) for _ in range(rounds)]))
 
 
+def pinned_library_ms(make, iterations: int):
+    """(median ms of three cuda_ms readings, backend name, the readings) of
+    the call that ``make()`` returns, with scaled_dot_product_attention's
+    backend pinned by torch.nn.attention.sdpa_kernel: the memory-efficient
+    one, else cuDNN's, else the math one, whichever runs first. ``make`` runs
+    under the pin too, so that a backward is timed on the forward's backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call = make()
+                readings = [cuda_ms(call, iterations) for _ in range(3)]
+        except RuntimeError:
+            continue
+        return float(np.median(readings)), backend.name, readings
+    raise SmokeFailure("no scaled_dot_product_attention backend ran")
+
+
+def readings_text(readings) -> str:
+    return ", ".join(f"{value:.4f}" for value in readings)
+
+
 def bound_ms(bytes_moved: float, operations: float, dtype_name: str):
     """Least time for the work: the larger of bytes over the memory rate and
     operations over the peak rate for their type."""
@@ -146,6 +182,42 @@ def phase_tensor_cores() -> None:
         check(sum(counts.values()) > 0, f"lib{library}.so has no tensor-core instruction")
 
 
+def phase_frame_encoder_sass() -> None:
+    """The SASS of K2's bf16 kernel at 16 channels a lane (C = 512): the
+    instructions of its frame loop (every inner loop is unrolled, and both
+    sides of erff's branch are counted, since a warp nearly always takes
+    both) over the 2 frames x 16 channels a lane computes in one pass, and
+    the main kinds among them. Prints what it can read; never fails."""
+    from allophant_tpu_torch.kernels.build import cuda_tool, library_path
+
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(library_path("frame_encoder"))], capture_output=True, text=True, timeout=120
+    ).stdout
+    functions = re.split(r"\n\s*Function : ", sass)
+    body = next((text for text in functions if "frame_encoder_kernel" in text.splitlines()[0] and "bfloat16" in text.splitlines()[0] and "Li16E" in text.splitlines()[0]), None)
+    if body is None:
+        print("sass frame_encoder: kernel not found", flush=True)
+        return
+    instructions = [(int(address, 16), text.strip()) for address, text in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    backward = [
+        (int(match.group(1), 16), address)
+        for address, text in instructions
+        for match in [re.search(r"\bBRA\b.*?0x([0-9a-f]+)", text)]
+        if match and int(match.group(1), 16) < address
+    ]
+    if not backward:
+        print(f"sass frame_encoder: {len(instructions)} instructions, frame loop not found", flush=True)
+        return
+    start, end = max(backward, key=lambda pair: pair[1] - pair[0])
+    loop = [text for address, text in instructions if start <= address <= end]
+    kinds = {kind: sum(bool(re.search(rf"\b{kind}\b", text)) for text in loop) for kind in ("FFMA", "FMUL", "FADD", "MUFU", "SHFL", "LDS", "LDG", "STG", "F2FP")}
+    print(
+        f"sass frame_encoder bf16 C=512: {len(instructions)} instructions, frame loop {len(loop)}"
+        f" for 32 elements a lane: {len(loop) / 32:.1f} a element; {kinds}",
+        flush=True,
+    )
+
+
 def frame_encoder_inputs(batch: int, samples: int, channels: int = 512):
     generator = torch.Generator(device="cuda").manual_seed(11)
 
@@ -162,32 +234,37 @@ def frame_encoder_inputs(batch: int, samples: int, channels: int = 512):
 
 
 def phase_frame_encoder(serve_batch: int, serve_samples: int) -> dict:
-    """K2 against its twin in bf16 and f32 at the 10 s serving bucket and at the
-    smallest bucket (1024 samples, whose 1024 % 5 tail the kernel drops);
-    returns the kernel's JSON entry (serving bucket, bf16: the "mixed" dtype)."""
+    """K2 against its twin in bf16 and f32 at the 10 s serving bucket, at the
+    smallest bucket (1024 samples, whose 1024 % 5 tail the kernel drops) and
+    at other channel counts (odd, narrow, the widest, one channel); returns
+    the kernel's JSON entry (serving bucket, bf16: the "mixed" dtype), with
+    its time per request (one launch) and per training step (one launch per
+    microbatch of TRAIN_ACCUMULATION at [TRAIN_BATCH, 10 s])."""
     from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv, reference_frame_conv
 
     entry = None
     # f32: exact erff in both, differing only in summation order (1e-4); bf16:
     # one rounding of O(4) values (2e-2).
+    shapes = [(serve_batch, serve_samples, 512), (2, 1024, 512), (2, 5 * 300 + 3, 100), (3, 2003, 64), (2, 4000, 1024), (2, 1500, 1)]
     cases = [
-        (batch, samples, dtype, tolerance)
-        for batch, samples in ((serve_batch, serve_samples), (2, 1024))
+        (batch, samples, channels, dtype, tolerance)
+        for batch, samples, channels in shapes
         for dtype, tolerance in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4))
     ]
-    for batch, samples, dtype, tolerance in cases:
-        inputs = frame_encoder_inputs(batch, samples)
+    for batch, samples, channels, dtype, tolerance in cases:
+        inputs = frame_encoder_inputs(batch, samples, channels)
         got = fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype)
         expected = reference_frame_conv(*inputs, 1e-5, dtype)
         torch.cuda.synchronize()
         error = (got.float() - expected.float()).abs().max().item()
+        finite = bool(torch.isfinite(got).all().item())
         dtype_name = str(dtype).removeprefix("torch.")
         print(
-            f"kernel frame_encoder {dtype_name} B={batch} S={samples} C=512 -> {got.shape[1]} frames:"
-            f" max_abs_err {error:.3e} (tolerance {tolerance:.0e})",
+            f"kernel frame_encoder {dtype_name} B={batch} S={samples} C={channels} -> {got.shape[1]} frames:"
+            f" max_abs_err {error:.3e} (tolerance {tolerance:.0e}), finite {finite}",
             flush=True,
         )
-        check(got.shape == expected.shape and error <= tolerance, f"frame_encoder {dtype_name} disagrees: {error}")
+        check(got.shape == expected.shape and finite and error <= tolerance, f"frame_encoder {dtype_name} C={channels} disagrees: {error}")
         if entry is None:
             frames, channels = got.shape[1], got.shape[2]
             kernel_ms = median_ms(lambda: fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype), 20)
@@ -196,9 +273,12 @@ def phase_frame_encoder(serve_batch: int, serve_samples: int) -> dict:
             # The conv's multiply-adds alone (10 per output element, f32).
             operations = 2 * 10 * batch * frames * channels
             bound, bound_by = bound_ms(bytes_moved, operations, "float32")
+            train_inputs = frame_encoder_inputs(TRAIN_BATCH, TRAIN_SECONDS * SAMPLE_RATE, channels)
+            step_ms = TRAIN_ACCUMULATION * median_ms(lambda: fused_frame_conv(*train_inputs, eps=1e-5, out_dtype=dtype), 20)
             print(
                 f"time frame_encoder {dtype_name} B={batch} S={samples}: kernel {kernel_ms:.4f} ms,"
-                f" twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})",
+                f" twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); per request {kernel_ms:.4f} ms (1 launch),"
+                f" per training step {step_ms:.4f} ms ({TRAIN_ACCUMULATION} launches at [{TRAIN_BATCH}, {TRAIN_SECONDS * SAMPLE_RATE}])",
                 flush=True,
             )
             entry = {
@@ -316,17 +396,21 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                 f"oneshot_attention {dtype_name} T={time_steps} disagrees: rms ratio {rms_ratio}, share {worst}",
             )
             if label == "serve" and dtype == torch.bfloat16:
-                kernel_ms = median_ms(lambda: oneshot_attention(q, k, v, bias, scale, heads), 20)
+                kernel_readings = [cuda_ms(lambda: oneshot_attention(q, k, v, bias, scale, heads), 20) for _ in range(3)]
+                kernel_ms = float(np.median(kernel_readings))
                 plain_ms = cuda_ms(lambda: reference_oneshot(q, k, v, bias, scale, heads), 5)
                 shape4 = (batch, time_steps, heads, head_dim)
                 q4, k4, v4 = (tensor.view(shape4).transpose(1, 2) for tensor in (q, k, v))
                 mask = bias.to(dtype)[:, None, None, :]
-                library_ms = median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 20)
+                library_ms, backend, library_readings = pinned_library_ms(
+                    lambda: lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 20
+                )
                 bytes_moved, operations = attention_work(batch, time_steps, heads, head_dim, lengths, 2)
                 bound, bound_by = bound_ms(bytes_moved, operations, dtype_name)
                 print(
-                    f"time oneshot_attention {dtype_name} B={batch} T={time_steps}: kernel {kernel_ms:.4f} ms,"
-                    f" twin {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms,"
+                    f"time oneshot_attention {dtype_name} B={batch} T={time_steps}: kernel {kernel_ms:.4f} ms"
+                    f" (readings {readings_text(kernel_readings)}), twin {plain_ms:.4f} ms,"
+                    f" scaled_dot_product_attention [{backend}] {library_ms:.4f} ms (readings {readings_text(library_readings)}),"
                     f" bound {bound:.4f} ms ({bound_by})",
                     flush=True,
                 )
@@ -493,6 +577,80 @@ def phase_dropout_attention() -> list:
     return [entries["attention_dropout"], entries["attention_backward"]]
 
 
+# Head widths other than 64: XLS-R 1B's 80 and 2B's 120 (which runs as the
+# 128 instantiation, zero-padded), 128 itself and 32.
+HEAD_WIDTHS = (32, 80, 120, 128)
+
+
+def phase_head_widths() -> None:
+    """K1, K5 and K4 at each of HEAD_WIDTHS, in bf16 and f32, against their
+    twins at the limits of the 64-wide cases (q/k/v strided views of a fused
+    projection, a ragged, a one-key and a zero-length row), K5 and K4 each
+    bit-equal over two calls; a width above 128 or not a multiple of 8 must
+    raise; then the bf16 times at XLS-R 1B / 2B-like shapes ([8, 499], 16
+    heads)."""
+    from allophant_tpu_torch.ops.oneshot_attention import (
+        oneshot_attention,
+        oneshot_attention_backward,
+        oneshot_dropout_attention,
+        reference_oneshot,
+        reference_oneshot_backward,
+        reference_oneshot_dropout,
+    )
+
+    batch, time_steps, heads, rate = 4, 200, 4, 0.1
+    lengths = [time_steps, time_steps - 37, 1, 0]
+    for head_dim in HEAD_WIDTHS:
+        scale = head_dim**-0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias, _ = attention_inputs(lengths, time_steps, heads, head_dim, dtype, fused_qkv=True)
+            grad = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(head_dim), device="cuda").to(dtype)
+            limits = KERNEL_LIMITS[dtype]
+            label = f"{str(dtype).removeprefix('torch.')} B={batch} T={time_steps} H={heads} hd={head_dim} strided lengths={lengths}"
+            print(f"kernel head width {label}:", flush=True)
+            got = oneshot_attention(q, k, v, bias, scale, heads)
+            compare("oneshot_attention against the twin", [("out", got, reference_oneshot(q, k, v, bias, scale, heads))], limits)
+            got = oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, heads, rate)
+            again = oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, heads, rate)
+            expected = reference_oneshot_dropout(q, k, v, bias, DROPOUT_SEEDS, scale, heads, rate)
+            compare(f"attention_dropout rate={rate} against the twin", [("out", got, expected)], limits)
+            check(torch.equal(got, again), f"attention_dropout hd={head_dim}: two calls differ")
+            for seeds, backward_rate in ((DROPOUT_SEEDS, rate), (None, None)):
+                got = oneshot_attention_backward(q, k, v, grad, bias, seeds, scale, heads, backward_rate)
+                again = oneshot_attention_backward(q, k, v, grad, bias, seeds, scale, heads, backward_rate)
+                expected = reference_oneshot_backward(q, k, v, grad, bias, seeds, scale, heads, backward_rate)
+                compare(f"attention_backward rate={backward_rate} dq, dk, dv against the twin", list(zip(("dq", "dk", "dv"), got, expected)), limits)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"attention_backward hd={head_dim}: two calls differ")
+    for head_dim in (136, 100):
+        q, k, v, bias, _ = attention_inputs([8, 8], 8, 2, head_dim, torch.bfloat16, fused_qkv=False)
+        for name, call in (
+            ("oneshot_attention", lambda: oneshot_attention(q, k, v, bias, 1.0, 2)),
+            ("attention_dropout", lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, 1.0, 2, rate)),
+            ("attention_backward", lambda: oneshot_attention_backward(q, k, v, q, bias, None, 1.0, 2, None)),
+        ):
+            try:
+                call()
+            except ValueError as error:
+                check("multiples of 8 up to 128" in str(error), f"{name} hd={head_dim}: {error}")
+            else:
+                raise SmokeFailure(f"{name} took a head width of {head_dim}")
+    print("kernel head width 136 and 100: every kernel raises ValueError naming the limit", flush=True)
+    for head_dim in (64, *HEAD_WIDTHS):
+        scale = head_dim**-0.5
+        q, k, v, bias, lengths_tensor = attention_inputs([TRAIN_TIME] * TRAIN_BATCH, TRAIN_TIME, HEADS, head_dim, torch.bfloat16, fused_qkv=True)
+        grad = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        forward_ms = median_ms(lambda: oneshot_attention(q, k, v, bias, scale, HEADS), 10)
+        dropout_ms = median_ms(lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
+        backward_ms = median_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
+        bytes_moved, operations = attention_work(TRAIN_BATCH, TRAIN_TIME, HEADS, head_dim, lengths_tensor, 2)
+        print(
+            f"time head width bf16 B={TRAIN_BATCH} T={TRAIN_TIME} H={HEADS} hd={head_dim}: oneshot_attention {forward_ms:.4f} ms"
+            f" (bound {bound_ms(bytes_moved, operations, 'bfloat16')[0]:.4f}), attention_dropout {dropout_ms:.4f} ms,"
+            f" attention_backward {backward_ms:.4f} ms (bound {bound_ms(7 * q.numel() * 2, operations * 5 / 2, 'bfloat16')[0]:.4f})",
+            flush=True,
+        )
+
+
 def time_dropout_forward(q, k, v, bias, lengths, scale, rate, error) -> dict:
     from allophant_tpu_torch.ops.oneshot_attention import oneshot_dropout_attention, reference_oneshot_dropout
 
@@ -501,12 +659,15 @@ def time_dropout_forward(q, k, v, bias, lengths, scale, rate, error) -> dict:
     plain_ms = cuda_ms(lambda: reference_oneshot_dropout(q, k, v, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
     q4, k4, v4 = (tensor.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2) for tensor in (q, k, v))
     mask = bias.to(q.dtype)[:, None, None, :]
-    library_ms = median_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, dropout_p=rate), 20)
+    library_ms, backend, readings = pinned_library_ms(
+        lambda: lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, dropout_p=rate), 20
+    )
     bytes_moved, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
     bound, bound_by = bound_ms(bytes_moved, operations, str(q.dtype).removeprefix("torch."))
     print(
         f"time attention_dropout B={batch} T={time_steps} rate={rate}: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms,"
-        f" scaled_dot_product_attention(dropout_p={rate}) {library_ms:.4f} ms (its own mask), bound {bound:.4f} ms ({bound_by})",
+        f" scaled_dot_product_attention(dropout_p={rate}) [{backend}] {library_ms:.4f} ms (its own mask; readings"
+        f" {readings_text(readings)}), bound {bound:.4f} ms ({bound_by})",
         flush=True,
     )
     return {
@@ -528,21 +689,29 @@ def time_backward(q, k, v, grad, bias, lengths, scale, rate, error) -> dict:
     from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention_backward, reference_oneshot_backward
 
     batch, time_steps, _ = q.shape
-    kernel_ms = median_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
+    kernel_readings = [
+        cuda_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10) for _ in range(3)
+    ]
+    kernel_ms = float(np.median(kernel_readings))
     plain_ms = cuda_ms(lambda: reference_oneshot_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 3)
     inputs = [tensor.detach().view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2).requires_grad_() for tensor in (q, k, v)]
     mask = bias.to(q.dtype)[:, None, None, :]
-    out = F.scaled_dot_product_attention(*inputs, attn_mask=mask, dropout_p=rate)
     grad4 = grad.view(batch, time_steps, HEADS, HEAD_DIM).transpose(1, 2)
-    library_ms = median_ms(lambda: torch.autograd.grad(out, inputs, grad4, retain_graph=True), 10)
+
+    def make_backward():
+        out = F.scaled_dot_product_attention(*inputs, attn_mask=mask, dropout_p=rate)
+        return lambda: torch.autograd.grad(out, inputs, grad4, retain_graph=True)
+
+    library_ms, backend, library_readings = pinned_library_ms(make_backward, 10)
     _, operations = attention_work(batch, time_steps, HEADS, HEAD_DIM, lengths, q.element_size())
     # q, k, v, g and the bias read, dq, dk, dv written; five products per
     # (query, key) pair (s, dp, dv, dq, dk) against the forward's two.
     bytes_moved = 7 * q.numel() * q.element_size() + bias.numel() * 4
     bound, bound_by = bound_ms(bytes_moved, operations * 5 / 2, str(q.dtype).removeprefix("torch."))
     print(
-        f"time attention_backward B={batch} T={time_steps} rate={rate}: kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms,"
-        f" scaled_dot_product_attention(dropout_p={rate}) backward {library_ms:.4f} ms (its own mask), bound {bound:.4f} ms ({bound_by})",
+        f"time attention_backward B={batch} T={time_steps} rate={rate}: kernel {kernel_ms:.4f} ms (readings"
+        f" {readings_text(kernel_readings)}), twin {plain_ms:.4f} ms, scaled_dot_product_attention(dropout_p={rate}) [{backend}]"
+        f" backward {library_ms:.4f} ms (its own mask; readings {readings_text(library_readings)}), bound {bound:.4f} ms ({bound_by})",
         flush=True,
     )
     return {
@@ -580,7 +749,8 @@ def beam_route(classes: int, beams: int) -> str:
     route = ctypes.CDLL(str(library_path("beam_search"))).beam_search_route
     route.argtypes = [ctypes.c_int, ctypes.c_int]
     route.restype = ctypes.c_int
-    return ("block kernel", "warp kernel, one candidate a lane", "warp kernel, sorted lists")[route(classes, beams)]
+    names = ("block kernel", "warp kernel, one candidate a lane", "warp kernel, sorted lists", "wide kernel, radix select")
+    return names[route(classes, beams)]
 
 
 def valid_steps(lengths, time_steps) -> int:
@@ -600,11 +770,11 @@ def beam_work(batch, time_steps, classes, beams, lengths):
     return bytes_moved, steps * beams * classes * 8
 
 
-def check_search(label, got, expected, collected, expected_collected):
+def check_search(label, got, expected, collected, expected_collected, bit_equal=False):
     """Parents, emitted tokens and collected grids integer-equal; scores
-    within a relative 1e-5 (bit-equal expected: the kernel's log-add is
-    PyTorch's, built without fast math). Returns the count of scores that
-    are not bit-equal and the largest relative score difference."""
+    within a relative 1e-5, or bit-equal with ``bit_equal`` (the kernel's
+    log-add is PyTorch's, built without fast math). Returns the count of
+    scores that are not bit-equal and the largest relative score difference."""
     parents, emitted, scores = got
     want_parents, want_emitted, want_scores = expected
     check(torch.equal(parents, want_parents), f"{label}: parents differ in {int((parents != want_parents).sum())} cells")
@@ -613,7 +783,9 @@ def check_search(label, got, expected, collected, expected_collected):
     relative = ((scores - want_scores).abs() / want_scores.abs().clamp_min(1e-30)).max().item()
     check(relative <= 1e-5, f"{label}: scores differ by a relative {relative}")
     absolute = (scores - want_scores).abs().max().item() if scores.numel() else 0.0
-    return int((scores != want_scores).sum().item()), relative, absolute
+    not_bit_equal = int((scores != want_scores).sum().item())
+    check(not bit_equal or not_bit_equal == 0, f"{label}: {not_bit_equal} scores are not bit-equal")
+    return not_bit_equal, relative, absolute
 
 
 def phase_beam_kernels(serve_lengths, serve_time) -> list:
@@ -655,12 +827,32 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
         ("warp limit, inside", 8, serve_time, 64, 8, serve, 0.5, 0),
         ("warp limit, C outside", 8, serve_time, 65, 8, serve, 0.5, 0),
         ("warp limit, K outside", 8, serve_time, 40, 9, serve, 0.5, 0),
+        # Each side of the block kernel's limit (K <= 16), then the wide
+        # kernel at the widths CTC decoders commonly search, on both flagship
+        # class counts, with ties; scores must be bit-equal there.
+        ("block limit, inside", 4, 128, 40, 16, [128, 97, 1, 0], 0.5, 0),
+        *[
+            (f"wide K={beams} C={classes}", 4, 128, classes, beams, [128, 97, 1, 0], 1.0 if classes == 4 else 2.0, 0)
+            for beams in (17, 32, 64, 100)
+            for classes in (4, 40)
+        ],
+        ("wide uniform emissions K=32 C=40", 4, 128, 40, 32, [128, 97, 1, 0], 0.0, 0),
+        ("wide uniform emissions K=100 C=4", 4, 128, 4, 100, [128, 97, 1, 0], 0.0, 0),
+        ("wide quantised emissions K=64 C=40", 4, 128, 40, 64, [128, 97, 1, 0], 1.0, 0),
+        ("wide quantised emissions K=100 C=4", 4, 128, 4, 100, [128, 97, 1, 0], 1.0, 0),
+        ("wide near-uniform merging K=32 C=40", 4, 128, 40, 32, [128, 97, 1, 0], 0.3, 0),
+        ("wide blank 3 K=17 C=40", 4, 128, 40, 17, [128, 97, 1, 0], 0.5, 3),
+        # Workspaces too large for shared memory live in global scratch; the
+        # widest rows are also read from global memory.
+        ("wide K=17 full inventory", 2, 64, 2400, 17, [64, 40], 2.0, 0),
+        ("wide K=100 full inventory", 1, 32, 2400, 100, [32], 2.0, 0),
+        ("wide K=17 widest classes", 2, 16, 32767, 17, [16, 9], 2.0, 0),
     ]
     # One request's work: both launches of each kernel, summed.
     totals = dict.fromkeys(("ms", "plain_ms", "bytes", "operations", "backtrace_ms", "backtrace_plain_ms", "backtrace_bytes"), 0.0)
     search_error = backtrace_error = 0.0
     for index, (label, batch, time_steps, classes, beams, lengths, scale, blank) in enumerate(cases):
-        quantised = label.startswith("quantised")
+        quantised = "quantised" in label
         emissions, lengths = beam_inputs(batch, time_steps, classes, lengths, 100 + index, scale, quantised)
         route = beam_route(classes, beams)
         got = beam_search_cuda(emissions, lengths, beams, blank)
@@ -674,7 +866,9 @@ def phase_beam_kernels(serve_lengths, serve_time) -> list:
             backtrace_error = max(backtrace_error, float((collected - backtrace_twin).abs().max().item()))
         check(torch.equal(collected, backtrace_twin), f"{label}: backtrace differs")
         expected_collected = backtrace_beams_device(expected[0], expected[1], lengths)
-        not_bit_equal, relative, absolute = check_search(label, got, expected, collected, expected_collected)
+        not_bit_equal, relative, absolute = check_search(
+            label, got, expected, collected, expected_collected, bit_equal=label.startswith("wide")
+        )
         search_error = max(search_error, absolute)
         live = int((got[2] > -5e29).sum().item())
         print(
@@ -944,6 +1138,88 @@ def phase_serve_beam(estimator, results: dict) -> None:
         f" {audio_seconds / seconds:.1f} audio-s/s",
         flush=True,
     )
+
+
+WIDE_BEAMS = (17, 32, 64, 100)
+
+
+def phase_wide_encoder(results: dict) -> None:
+    """The flagship head on a 2-layer encoder of XLS-R 1B's width (1280, 16
+    heads of 80), "mixed": one greedy request through predict_decoded, then
+    the same request through predict_beam_decoded over all heads at each of
+    WIDE_BEAMS, launch counters read around each call; each beam grid must
+    equal the CPU search (the plain versions) of the card's log-probs."""
+    from allophant_tpu_torch.data.batch import Batch
+    from allophant_tpu_torch.demo import build_flagship
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+    from allophant_tpu_torch.ops.decode import beam_search_heads
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+
+    architecture = dataclasses.replace(
+        Wav2Vec2Architecture(), hidden_size=1280, num_attention_heads=16, intermediate_size=5120, num_hidden_layers=2
+    )
+    estimator = build_flagship(seed=2, architecture=architecture, precision="mixed", device="cuda")
+    rng = np.random.default_rng(5)
+    lengths = np.array([2 * SAMPLE_RATE, 19_000], dtype=np.int32)
+    audio = (0.1 * rng.standard_normal((2, int(lengths.max())))).astype(np.float32)
+    batch = Batch(audio, lengths, np.array([0, 2]))
+    predictions = estimator.predict(batch, time_major=False)
+    heads = tuple(sorted(predictions.outputs))
+    widths = {head: value.shape[-1] for head, value in predictions.outputs.items()}
+    layers = architecture.num_hidden_layers
+    counters = {
+        "oneshot_attention": oneshot_attention,
+        "frame_encoder": fused_frame_conv,
+        "beam_search": beam_search_cuda,
+        "beam_backtrace": backtrace_cuda,
+    }
+
+    def run(call):
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        start = time.perf_counter()
+        result = call()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {name: counter.launches for name, counter in counters.items()}
+        for name, count in launches.items():
+            results[name] += count
+        return result, launches, seconds
+
+    (grid, frames), launches, seconds = run(lambda: estimator.predict_decoded(batch, heads=heads))
+    expected = {"oneshot_attention": layers, "frame_encoder": 1, "beam_search": 0, "beam_backtrace": 0}
+    check(launches == expected, f"80-wide heads greedy request: launches {launches}, expected {expected}")
+    check_grid(grid, frames, heads, widths)
+    print(
+        f"serve 80-wide heads (hidden 1280, 16 heads, {layers} layers): greedy grid {tuple(grid.shape)}, frames"
+        f" {frames.tolist()}, launches {launches}, {seconds * 1e3:.1f} ms",
+        flush=True,
+    )
+    searches = len(set(widths.values()))
+    # What predict_beam_decoded searches: f32 log_softmax of each head, on the card.
+    cpu_log_probs = [torch.log_softmax(predictions.outputs[head].float(), dim=-1).cpu() for head in heads]
+    for beams in WIDE_BEAMS:
+        (collected, scores, frames), launches, seconds = run(
+            lambda: estimator.predict_beam_decoded(batch, heads=heads, beam_width=beams)
+        )
+        expected = {"oneshot_attention": layers, "frame_encoder": 1, "beam_search": searches, "beam_backtrace": searches}
+        check(launches == expected, f"80-wide heads beam request K={beams}: launches {launches}, expected {expected}")
+        check_beam_grid(collected, scores, frames, heads, widths, beams)
+        cpu_collected, cpu_scores = beam_search_heads(cpu_log_probs, predictions.lengths.cpu(), beams)
+        mismatched = int((cpu_collected != collected.cpu()).sum().item())
+        live = cpu_scores > -5e29
+        score_error = (cpu_scores[live] - scores.cpu()[live]).abs().max().item()
+        routes = sorted({beam_route(width, beams) for width in widths.values()})
+        print(
+            f"serve 80-wide heads beam width {beams} ({', '.join(routes)}): collected {tuple(collected.shape)}, launches"
+            f" {launches}, {seconds * 1e3:.1f} ms; the CPU search of the card's log-probs: cells differing {mismatched},"
+            f" live-score max_abs_err {score_error:.3e}",
+            flush=True,
+        )
+        check(mismatched == 0, f"beam width {beams}: the CPU search of the card's log-probs disagrees with the kernels")
 
 
 def phase_float32() -> None:
@@ -1241,6 +1517,7 @@ def main() -> int:
     phase_card()
     phase_build()
     phase_tensor_cores()
+    phase_frame_encoder_sass()
     set_float32_precision("highest")
     launches = dict.fromkeys(
         ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),
@@ -1265,10 +1542,13 @@ def main() -> int:
     ]
     dropout_forward, backward = phase_dropout_attention()
     entries += [backward, dropout_forward, phase_dropout_mask()]
+    phase_head_widths()
     estimator = build_serving_flagship()
     phase_serve(estimator, launches)
     phase_serve_beam(estimator, launches)
     del estimator
+    torch.cuda.empty_cache()
+    phase_wide_encoder(launches)
     torch.cuda.empty_cache()
     phase_float32()
     phase_train(launches)

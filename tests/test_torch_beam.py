@@ -90,6 +90,32 @@ def test_search_matches_jax_scan_and_pallas_kernel(case):
         )
 
 
+# Beam widths above 16 (the CUDA wide kernel's range): (batch, time, classes,
+# beam_width, lengths, seed, scale, quantised). A beam set wider than the
+# live prefixes keeps dead slots; quantised logits make exact ties.
+WIDE_CASES = {
+    "k17": (3, 14, 6, 17, [14, 9, 0], 12, 1.0, False),
+    "k32-quantised": (2, 12, 5, 32, [12, 7], 13, 1.0, True),
+    "k100": (2, 10, 4, 100, [10, 6], 14, 1.0, False),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_wide_beam_search_matches_jax_scan(case):
+    """Parents, emitted tokens and backtraced grids integer-exact against
+    JAX's lax.scan search at K = 17, 32 and 100; scores within SCORE_ATOL."""
+    batch, time, classes, beam_width, lengths, seed, scale, quantised = WIDE_CASES[case]
+    log_probs = _log_probs(batch, time, classes, seed, scale, quantised)
+    got = _port_search(log_probs, lengths, beam_width)
+    assert got[0].shape == got[1].shape == (time, batch, beam_width)
+    jax_lengths = jnp.asarray(lengths, jnp.int32)
+    expected = jax_decode.beam_search_padded(jnp.asarray(log_probs), jax_lengths, beam_width=beam_width)
+    _assert_search_equal(expected, got)
+    expected_grid = np.asarray(jax_decode.backtrace_beams_device(expected[0], expected[1], jax_lengths))
+    got_grid = decode.backtrace_beams_device(*(torch.from_numpy(array) for array in got[:2]), torch.tensor(lengths))
+    np.testing.assert_array_equal(got_grid.numpy(), expected_grid)
+
+
 def test_rolling_hash_wraps_as_int32():
     rng = np.random.default_rng(6)
     hashes = rng.integers(-(2**31), 2**31, size=(3, 4), dtype=np.int64).astype(np.int32)

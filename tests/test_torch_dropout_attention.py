@@ -132,6 +132,30 @@ def test_backward_twin_matches_jax_vjp_on_every_entry(rate):
     assert oneshot_attention_backward.launches == before
 
 
+@pytest.mark.parametrize("head_dim", [32, 80, 120])
+def test_twins_match_jax_at_other_head_widths(head_dim):
+    """K5 at rate 0.1 against JAX's _reference_bthd_dropout given the mask,
+    and K4 (with that mask and without one) against jax.vjp of JAX's
+    references, at head widths other than 64, at the tolerance of the
+    narrower cases above."""
+    q, k, v, g, bias = _inputs(time=13, head_dim=head_dim, seed=4)
+    scale, heads, rate = head_dim**-0.5, 2, 0.1
+    keep = _jax_keep_mask(q.shape[0], heads, q.shape[1], rate)
+    expected = np.asarray(_reference_bthd_dropout(*map(jnp.asarray, (q, k, v, bias)), keep, scale, heads, rate))
+    got = reference_oneshot_dropout(*map(torch.from_numpy, (q, k, v, bias)), SEEDS, scale, heads, rate).numpy()
+    np.testing.assert_allclose(got, expected, atol=ATOL)
+    for seeds, backward_rate in ((SEEDS, rate), (None, None)):
+        if backward_rate is None:
+            function = lambda *qkv: _reference_bthd(*qkv, jnp.asarray(bias), scale, heads)  # noqa: E731
+        else:
+            function = lambda *qkv: _reference_bthd_dropout(*qkv, jnp.asarray(bias), keep, scale, heads, rate)  # noqa: E731
+        _, vjp = jax.vjp(function, *map(jnp.asarray, (q, k, v)))
+        expected = vjp(jnp.asarray(g))
+        got = reference_oneshot_backward(*map(torch.from_numpy, (q, k, v, g, bias)), seeds, scale, heads, backward_rate)
+        for name, got_part, expected_part in zip(("dq", "dk", "dv"), got, expected):
+            np.testing.assert_allclose(got_part.numpy(), np.asarray(expected_part), atol=ATOL, err_msg=f"{name} rate={backward_rate}")
+
+
 @pytest.mark.parametrize("rate", [None, 0.2])
 def test_autograd_functions_route_the_backward_through_the_twin(rate):
     q, k, v, g, bias = (torch.from_numpy(array) for array in _inputs(seed=3))

@@ -32,6 +32,8 @@ VARIANTS = {
     "xls-r": dict(feat_extract_norm="layer", do_stable_layer_norm=True),
     # Base wav2vec2: GroupNorm after the first conv, post-LN encoder.
     "base": dict(feat_extract_norm="group", do_stable_layer_norm=False),
+    # XLS-R with 80-wide heads, as XLS-R 1B has them (1280 / 16).
+    "xls-r-80-wide-heads": dict(feat_extract_norm="layer", do_stable_layer_norm=True, hidden_size=160, num_attention_heads=2),
 }
 
 
@@ -40,7 +42,7 @@ def test_hidden_states_match_jax(variant):
     settings = {**TINY, **VARIANTS[variant]}
     jax_arch = JaxArchitecture(**settings)
     arch = Wav2Vec2Architecture(**settings)
-    assert arch.fuses_first_layer == (variant == "xls-r")
+    assert arch.fuses_first_layer == (settings["feat_extract_norm"] == "layer")
 
     rng = np.random.default_rng(0)
     samples = 3203

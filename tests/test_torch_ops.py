@@ -17,7 +17,7 @@ from allophant_tpu.ops.frame_encoder import fused_frame_conv as jax_fused_frame_
 from allophant_tpu.ops.oneshot_attention import _oneshot_forward
 from allophant_tpu_torch.ops import activations, attention, decode, masking
 from allophant_tpu_torch.ops.frame_encoder import FusedFrameConv, fused_frame_conv, reference_frame_conv
-from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention, reference_oneshot
+from allophant_tpu_torch.ops.oneshot_attention import kernel_head_dim, oneshot_attention, reference_oneshot
 
 
 def _bf16_values(array: np.ndarray) -> np.ndarray:
@@ -127,6 +127,31 @@ class TestFrameEncoderTwin:
         assert got.dtype == torch_dtype and got.shape == (2, audio.shape[1] // 5 - 1, 128)
         np.testing.assert_allclose(got.float().numpy(), expected, atol=atol)
 
+    @pytest.mark.parametrize("channels", [64, 100])
+    @pytest.mark.parametrize(
+        "jax_dtype, torch_dtype, atol",
+        [(jnp.float32, torch.float32, 1e-5), (jnp.bfloat16, torch.bfloat16, 2e-2)],
+        ids=["f32-exact-erf", "bf16"],
+    )
+    def test_matches_pallas_kernel_at_other_channel_counts(self, monkeypatch, channels, jax_dtype, torch_dtype, atol):
+        """C other than 512, which the CUDA kernel takes up to 1024: the twin
+        against the Pallas kernel with the exact erf swapped in, at the
+        tolerances of test_matches_pallas_kernel."""
+        import jax
+
+        from allophant_tpu.ops import frame_encoder as jax_frame_encoder
+
+        monkeypatch.setattr(jax_frame_encoder, "_erf", jax.lax.erf)
+        jax.clear_caches()
+        audio, kernel, bias, scale, shift = self._inputs(channels=channels, samples=5 * 90 + 4)
+        expected = np.asarray(
+            jax_fused_frame_conv(*map(jnp.asarray, (audio, kernel, bias, scale, shift)), eps=1e-5, out_dtype=jax_dtype)
+        ).astype(np.float32)
+        jax.clear_caches()
+        got = fused_frame_conv(*map(torch.from_numpy, (audio, kernel, bias, scale, shift)), eps=1e-5, out_dtype=torch_dtype)
+        assert got.dtype == torch_dtype and got.shape == (2, audio.shape[1] // 5 - 1, channels)
+        np.testing.assert_allclose(got.float().numpy(), expected, atol=atol)
+
     def test_cpu_tensors_take_the_twin_without_a_launch(self):
         inputs = [torch.from_numpy(array) for array in self._inputs(channels=32, samples=100)]
         before = fused_frame_conv.launches
@@ -195,6 +220,27 @@ class TestOneshotAttentionTwin:
         assert np.isfinite(got).all()
         valid = np.broadcast_to(mask[:, :, None], got.shape)
         np.testing.assert_allclose(got[valid], expected[valid], atol=2e-5)
+
+    @pytest.mark.parametrize("head_dim", [32, 80, 120])
+    def test_matches_pallas_kernel_at_other_head_widths(self, head_dim):
+        """Head widths other than 64 (XLS-R 1B's 80, 2B's 120): the Pallas
+        kernel's interpret-mode plan takes every width."""
+        q, k, v, bias, mask = self._inputs(3, 128, 2, head_dim)
+        scale = head_dim**-0.5
+        expected = np.asarray(_oneshot_forward(*map(jnp.asarray, (q, k, v, bias)), scale, 2, interpret=True))
+        got = oneshot_attention(*map(torch.from_numpy, (q, k, v, bias)), scale, 2).numpy()
+        valid = np.broadcast_to(mask[:, :, None], got.shape)
+        np.testing.assert_allclose(got[valid], expected[valid], atol=2e-5)
+
+    def test_kernel_head_widths(self):
+        """The CUDA kernels take every multiple of 8 up to 128 and raise a
+        ValueError naming the limit on any other width."""
+        assert [kernel_head_dim("k", 16 * width, 16) for width in (8, 64, 80, 120, 128)] == [8, 64, 80, 120, 128]
+        for model_dim, heads in ((16 * 136, 16), (2 * 100, 2), (2 * 4, 2)):
+            with pytest.raises(ValueError, match="multiples of 8 up to 128"):
+                kernel_head_dim("k", model_dim, heads)
+        with pytest.raises(ValueError, match="does not split"):
+            kernel_head_dim("k", 100, 3)
 
     def test_zero_length_row_is_finite_average(self):
         q, k, v, bias, _ = self._inputs(3, 64, 2, 8)
