@@ -86,6 +86,7 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "attention_wide.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -975,10 +976,22 @@ cudaError_t allow_shared(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
 }
 
+// The chunked route of attention_wide.cuh, for heads wider than 128.
+template <typename T>
+int launch_wide(const void* query, const void* key, const void* value, const void* grad, const float* key_bias,
+                void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads, int head_dim,
+                const long long* flat_strides, float score_scale, float bias_scale, float sm_scale,
+                const Dropout& dropout, cudaStream_t stream) {
+  return wide::launch_backward<T>(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time,
+                                  heads, head_dim, flat_strides, score_scale, bias_scale, sm_scale,
+                                  wide::Mask{dropout.seed0, dropout.seed1, dropout.threshold, dropout.enabled},
+                                  dropout.inverse_keep, stream);
+}
+
 int launch_f32(const void* query, const void* key, const void* value, const void* grad, const float* key_bias,
                void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads, int head_dim,
-               const Strides& strides, float score_scale, float bias_scale, float sm_scale, const Dropout& dropout,
-               cudaStream_t stream) {
+               const Strides& strides, const long long* flat_strides, float score_scale, float bias_scale,
+               float sm_scale, const Dropout& dropout, cudaStream_t stream) {
   return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
     constexpr int HD = decltype(width)::value;
     constexpr bool kPadded = decltype(padded)::value;
@@ -1002,13 +1015,16 @@ int launch_f32(const void* query, const void* key, const void* value, const void
         q, k, v, g, key_bias, stats, static_cast<float*>(d_key), static_cast<float*>(d_value), batch, time, heads,
         head_dim, strides, score_scale, bias_scale, sm_scale, dropout);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return launch_wide<float>(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads,
+                              head_dim, flat_strides, score_scale, bias_scale, sm_scale, dropout, stream);
   });
 }
 
 int launch_bf16(const void* query, const void* key, const void* value, const void* grad, const float* key_bias,
                 void* d_query, void* d_key, void* d_value, float* stats, int batch, int time, int heads, int head_dim,
-                const Strides& strides, float score_scale, float bias_scale, float sm_scale, const Dropout& dropout,
-                cudaStream_t stream) {
+                const Strides& strides, const long long* flat_strides, float score_scale, float bias_scale,
+                float sm_scale, const Dropout& dropout, cudaStream_t stream) {
   return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
     constexpr int HD = decltype(width)::value;
     constexpr bool kPadded = decltype(padded)::value;
@@ -1031,6 +1047,9 @@ int launch_bf16(const void* query, const void* key, const void* value, const voi
         q, k, v, g, key_bias, stats, static_cast<bf16*>(d_key), static_cast<bf16*>(d_value), batch, time, heads,
         head_dim, strides, score_scale, bias_scale, sm_scale, dropout);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return launch_wide<bf16>(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads,
+                             head_dim, flat_strides, score_scale, bias_scale, sm_scale, dropout, stream);
   });
 }
 
@@ -1039,7 +1058,8 @@ int launch_bf16(const void* query, const void* key, const void* value, const voi
 // strides: q, k, v, g, dq, dk, dv batch and time strides in elements (14
 // values); the head-dim axis must be contiguous, and for bf16 every head row
 // must start on a 16-byte boundary (the wrapper checks both). head_dim: a
-// multiple of 8 from 8 to 128 (tiles::with_head_width). stats: f32
+// positive multiple of 8; above 128 the chunked route of attention_wide.cuh
+// runs (tiles::with_head_width). stats: f32
 // [3, B, H, T] scratch. use_dropout 0 computes the backward of plain
 // attention (the seeds, threshold and inverse_keep are then unused). dtype:
 // 0 = f32, 1 = bf16. Returns cudaGetLastError() after the two launches (0 on
@@ -1056,9 +1076,9 @@ extern "C" int attention_backward(const void* query, const void* key, const void
   const Dropout dropout{seed0, seed1, threshold, inverse_keep, use_dropout};
   if (dtype == 0)
     return launch_f32(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads, head_dim,
-                      packed, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
+                      packed, strides, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
   if (dtype == 1)
     return launch_bf16(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads,
-                       head_dim, packed, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
+                       head_dim, packed, strides, score_scale, bias_scale, sm_scale, dropout, cuda_stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "attention_wide.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -429,6 +430,10 @@ int launch_f32(const void* query, const void* key, const void* value, const floa
         key_bias, static_cast<float*>(out), time, heads, head_dim, strides[0], strides[1], strides[2], strides[3],
         strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return wide::launch_forward<float, true>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
+                                             score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1},
+                                             keep_prob, stream);
   });
 }
 
@@ -448,6 +453,10 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
         static_cast<bf16*>(out), time, head_dim, strides[0], strides[1], strides[2], strides[3], strides[4],
         strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return wide::launch_forward<bf16, true>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
+                                            score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1},
+                                            keep_prob, stream);
   });
 }
 
@@ -455,8 +464,9 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
 
 // strides: q, k, v, out batch and time strides in elements (8 values); the
 // head-dim axis must be contiguous, and for bf16 every head row must start on
-// a 16-byte boundary (the wrapper checks both). head_dim: a multiple of 8
-// from 8 to 128 (tiles::with_head_width). dtype: 0 = f32, 1 = bf16.
+// a 16-byte boundary (the wrapper checks both). head_dim: a positive
+// multiple of 8; above 128 the chunked route of attention_wide.cuh runs
+// (tiles::with_head_width). dtype: 0 = f32, 1 = bf16.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int attention_dropout_forward(const void* query, const void* key, const void* value,
                                          const float* key_bias, void* out, int batch, int time,

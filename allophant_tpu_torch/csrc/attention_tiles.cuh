@@ -7,7 +7,8 @@
 // widths of HeadWidths below (wav2vec2 base and XLS-R 300M have 64-wide heads,
 // XLS-R 1B 80, XLS-R 2B 120), and any other multiple of 8 up to 128 runs as
 // the next of them, its extra columns zero-filled in shared memory and never
-// stored.
+// stored. Wider heads take the chunked route of attention_wide.cuh, built
+// from the same tiles at 128 columns.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for lane
 // = 4 * g + c of a warp (g = lane / 4, c = lane % 4):
@@ -40,17 +41,20 @@ constexpr float kValidBias = -5e8f;
 // of 32, 64, 80, 96 and 128 at least head_dim, and whether head_dim falls
 // short of it. A kernel built with padded false takes its column count as
 // the constant HD, so an exact width compiles no column checks. A head_dim
-// that is not a multiple of 8 in 8 .. 128 returns cudaErrorInvalidValue (the
-// wrappers raise on it first).
+// above 128 calls launch_wide() instead: the chunked route of
+// attention_wide.cuh, whose blocks each own 128 output columns. A head_dim
+// that is not a positive multiple of 8 returns cudaErrorInvalidValue (the
+// wrappers zero-pad their heads to a multiple of 8 first).
 template <int HD, typename Launch>
 int with_padding(int head_dim, Launch&& launch) {
   if (head_dim == HD) return launch(std::integral_constant<int, HD>(), std::false_type());
   return launch(std::integral_constant<int, HD>(), std::true_type());
 }
 
-template <typename Launch>
-int with_head_width(int head_dim, Launch&& launch) {
-  if (head_dim < 8 || head_dim > 128 || head_dim % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+template <typename Launch, typename LaunchWide>
+int with_head_width(int head_dim, Launch&& launch, LaunchWide&& launch_wide) {
+  if (head_dim < 8 || head_dim % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim > 128) return launch_wide();
   if (head_dim <= 32) return with_padding<32>(head_dim, launch);
   if (head_dim <= 64) return with_padding<64>(head_dim, launch);
   if (head_dim <= 80) return with_padding<80>(head_dim, launch);

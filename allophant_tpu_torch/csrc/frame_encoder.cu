@@ -35,11 +35,19 @@
 //   blocks are persistent (one wave over the SMs, the weights staged once a
 //   block), each warp striding over groups of kFrames frames;
 // - the LayerNorm statistics are warp shuffles over the frame's channels.
-// Any C from 1 to 1024 is taken: channels per lane (CPL) is a template
-// parameter (8, 16, 24 or 32), and the channels past C hold zero weights,
-// bias, scale and shift, take no part in the mean (their value is 0), are
-// masked out of the centred sum of squares and are never stored; a C that is
-// not a multiple of the vector width stores one element at a time.
+// Any C from 1 to 1024 is taken by that kernel: channels per lane (CPL) is a
+// template parameter (8, 16, 24 or 32), and the channels past C hold zero
+// weights, bias, scale and shift, take no part in the mean (their value is
+// 0), are masked out of the centred sum of squares and are never stored; a C
+// that is not a multiple of the vector width stores one element at a time.
+//
+// Above 1024 channels (no wav2vec2 extractor has them; the TPU kernel takes
+// any C) a second kernel, frame_encoder_chunked_kernel, walks the channels
+// in chunks of 1024, 32 a lane, one warp a frame: a pass for the mean over
+// all C, a pass for the centred sum of squares, and a pass that normalises,
+// applies GELU and writes. Each pass recomputes the 10-tap convolution from
+// the weights in global memory (cached in L1), which costs 10 multiply-adds
+// an element against the pass's erff; it is meant to be right, not fast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,7 +62,7 @@ constexpr int kTaps = 10;
 constexpr int kStride = 5;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxChannelsPerLane = 32;  // C up to 1024
+constexpr int kMaxChannelsPerLane = 32;  // C up to 1024 in one pass
 // Frames a warp computes together: each weight read from shared memory feeds
 // this many multiply-adds. Two measured fastest (NVIDIA H100 80GB HBM3):
 // four frames take 235 registers, one block of 8 warps an SM, too few warps
@@ -219,6 +227,66 @@ frame_encoder_kernel(const float* __restrict__ audio, const float* __restrict__ 
   }
 }
 
+// C above 1024: one warp a frame, the channels in chunks of 32 a lane.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+frame_encoder_chunked_kernel(const float* __restrict__ audio, const float* __restrict__ weight,
+                             const float* __restrict__ bias, const float* __restrict__ ln_scale,
+                             const float* __restrict__ ln_bias, T* __restrict__ out, int batch, int frames,
+                             int channels, long long audio_batch_stride, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float inverse_channels = 1.0f / static_cast<float>(channels);
+  const long long items = static_cast<long long>(batch) * frames;
+  for (long long item = static_cast<long long>(blockIdx.x) * kWarps + warp; item < items;
+       item += static_cast<long long>(gridDim.x) * kWarps) {
+    const int row = static_cast<int>(item / frames);
+    const int frame = static_cast<int>(item - static_cast<long long>(row) * frames);
+    const float* window = audio + row * audio_batch_stride + kStride * frame;
+    float samples[kTaps];
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) samples[k] = __ldg(window + k);
+    // The convolution and bias of channel c, summed as the one-pass kernel sums them.
+    auto hidden = [&](int c) {
+      float value = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) value = fmaf(samples[k], __ldg(weight + k * channels + c), value);
+      return value + __ldg(bias + c);
+    };
+    float total = 0.0f;
+    for (int c = lane; c < channels; c += 32) total += hidden(c);
+    const float mean = warp_sum(total) * inverse_channels;
+    float squares = 0.0f;
+    for (int c = lane; c < channels; c += 32) {
+      const float centred = hidden(c) - mean;
+      squares = fmaf(centred, centred, squares);
+    }
+    const float inverse_std = rsqrtf(warp_sum(squares) * inverse_channels + eps);
+    T* out_frame = out + item * channels;
+    for (int c = lane; c < channels; c += 32) {
+      const float normalized = (hidden(c) - mean) * inverse_std * __ldg(ln_scale + c) + __ldg(ln_bias + c);
+      const float half = 0.5f * normalized;
+      store_one(out_frame + c, fmaf(half, erff(normalized * 0.70710678118654752f), half));
+    }
+  }
+}
+
+template <typename T>
+int launch_chunked(const float* audio, const float* weight, const float* bias, const float* ln_scale,
+                   const float* ln_bias, void* out, int batch, int frames, int channels, long long audio_batch_stride,
+                   float eps, cudaStream_t stream) {
+  int device = 0, processors = 0;
+  cudaError_t status = cudaGetDevice(&device);
+  if (status == cudaSuccess) status = cudaDeviceGetAttribute(&processors, cudaDevAttrMultiProcessorCount, device);
+  if (status != cudaSuccess) return static_cast<int>(status);
+  const long long wanted = (static_cast<long long>(batch) * frames + kWarps - 1) / kWarps;
+  const int blocks = static_cast<int>(std::max(1LL, std::min<long long>(wanted, 8LL * processors)));
+  frame_encoder_chunked_kernel<T><<<blocks, kThreads, 0, stream>>>(audio, weight, bias, ln_scale, ln_bias,
+                                                                   static_cast<T*>(out), batch, frames, channels,
+                                                                   audio_batch_stride, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int CPL>
 int launch(const float* audio, const float* weight, const float* bias, const float* ln_scale,
            const float* ln_bias, void* out, int batch, int frames, int channels, long long audio_batch_stride,
@@ -251,8 +319,11 @@ int launch_channels(const float* audio, const float* weight, const float* bias, 
   if (channels <= 768)
     return launch<T, 24>(audio, weight, bias, ln_scale, ln_bias, out, batch, frames, channels, audio_batch_stride,
                          eps, stream);
-  return launch<T, 32>(audio, weight, bias, ln_scale, ln_bias, out, batch, frames, channels, audio_batch_stride, eps,
-                       stream);
+  if (channels <= 32 * kMaxChannelsPerLane)
+    return launch<T, 32>(audio, weight, bias, ln_scale, ln_bias, out, batch, frames, channels, audio_batch_stride,
+                         eps, stream);
+  return launch_chunked<T>(audio, weight, bias, ln_scale, ln_bias, out, batch, frames, channels, audio_batch_stride,
+                           eps, stream);
 }
 
 }  // namespace
@@ -260,14 +331,14 @@ int launch_channels(const float* audio, const float* weight, const float* bias, 
 // audio: [B, S] f32 rows with the given batch stride (S >= 5 * (frames + 1));
 // weight: [10, C] f32 contiguous; bias, ln_scale, ln_bias: [C] f32;
 // out: [B, frames, C] contiguous and 16-byte aligned, dtype 0 = f32, 1 = bf16;
-// 1 <= C <= 1024. Returns cudaGetLastError() after the launch (0 on success).
+// C >= 1 (above 1024 the chunked kernel runs). Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int frame_encoder_forward(const float* audio, const float* weight, const float* bias,
                                      const float* ln_scale, const float* ln_bias, void* out,
                                      int batch, int frames, int channels,
                                      long long audio_batch_stride, float eps, int dtype,
                                      void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
-  if (channels < 1 || channels > 32 * kMaxChannelsPerLane) return static_cast<int>(cudaErrorInvalidValue);
+  if (channels < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch_channels<float>(audio, weight, bias, ln_scale, ln_bias, out, batch, frames, channels,
                                   audio_batch_stride, eps, cuda_stream);

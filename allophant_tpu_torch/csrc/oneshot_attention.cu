@@ -54,6 +54,7 @@
 #include <math.h>
 
 #include "attention_tiles.cuh"
+#include "attention_wide.cuh"
 
 namespace {
 
@@ -384,6 +385,9 @@ int launch_f32(const void* query, const void* key, const void* value, const floa
         key_bias, static_cast<float*>(out), time, heads, head_dim, strides[0], strides[1], strides[2], strides[3],
         strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return wide::launch_forward<float, false>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
+                                              score_scale, bias_scale, wide::Mask{0u, 0u, 0u, 0}, 1.0f, stream);
   });
 }
 
@@ -403,6 +407,9 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
         static_cast<bf16*>(out), time, head_dim, strides[0], strides[1], strides[2], strides[3], strides[4],
         strides[5], strides[6], strides[7], score_scale, bias_scale);
     return static_cast<int>(cudaGetLastError());
+  }, [&] {
+    return wide::launch_forward<bf16, false>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
+                                             score_scale, bias_scale, wide::Mask{0u, 0u, 0u, 0}, 1.0f, stream);
   });
 }
 
@@ -411,7 +418,8 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
 // strides: q, k, v, out batch and time strides in elements, in that order
 // (8 values); the head-dim axis must be contiguous, and for bf16 every head
 // row must start on a 16-byte boundary (the wrapper checks both). head_dim:
-// a multiple of 8 from 8 to 128 (tiles::with_head_width). dtype: 0 = f32,
+// a positive multiple of 8; above 128 the chunked route of
+// attention_wide.cuh runs (tiles::with_head_width). dtype: 0 = f32,
 // 1 = bf16. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int oneshot_attention_forward(const void* query, const void* key, const void* value,
                                          const float* key_bias, void* out, int batch, int time,

@@ -1,17 +1,33 @@
 """Top-level Allophant model, wav2vec2 acoustic model only (counterpart of
-``allophant_tpu/models/allophant.py``)."""
+``allophant_tpu/models/allophant.py``), and its builders from a configuration:
+``attribute_graph_from_config`` and ``build_model``."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from allophant_tpu_torch.config import (
+    Architecture,
+    PhonemeLayerType,
+    ProjectionEntryConfig,
+    Wav2Vec2PretrainedConfig,
+    whole_run_frozen_prefix,
+)
 from allophant_tpu_torch.models.layers import DropoutRng
-from allophant_tpu_torch.models.projection import OUTPUT_DEPENDENCY, HierarchicalProjection, ProjectionPlan
+from allophant_tpu_torch.models.projection import (
+    OUTPUT_DEPENDENCY,
+    HierarchicalProjection,
+    ProjectionPlan,
+    build_projection_plan,
+)
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture, Wav2Vec2Model
+from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph, AttributeNode, TimeLayerConfig
+from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
 
 
 @dataclasses.dataclass
@@ -90,3 +106,85 @@ class AllophantModel(nn.Module):
     @property
     def classes(self) -> List[str]:
         return [node.name for node in self.plan.nodes]
+
+
+def highest_specific_output_layer(graph: AttributeGraph) -> Optional[int]:
+    """Exclusive index of the highest "OUTPUT_<i>" tap, or None if only the final
+    output is used (reference :932-941): encoder layers above it are dropped."""
+    indices = []
+    for node in graph:
+        for dependency in node.dependencies:
+            match = ProjectionEntryConfig.OUTPUT_PATTERN.match(dependency)
+            if match is not None and match.group(1) is not None:
+                indices.append(int(match.group(1)))
+    return max(indices) + 1 if indices else None
+
+
+def attribute_graph_from_config(config, attribute_indexer: PhoneticAttributeIndexer) -> AttributeGraph:
+    """The attribute graph of the configured classifiers with the indexer's
+    class counts (reference estimator.py:271-281)."""
+    nodes = []
+    for entry in config.nn.projection.classes:
+        time_layer = None
+        if entry.time_layer is not None:
+            time_layer = TimeLayerConfig(entry.time_layer.num_heads, entry.time_layer.positional_embeddings)
+        nodes.append(AttributeNode(entry.name, attribute_indexer.size(entry.name), time_layer, list(entry.dependencies)))
+    return AttributeGraph(nodes)
+
+
+@dataclasses.dataclass
+class BuiltModel:
+    """A model built from a configuration, with its plan's static tables
+    already written into it."""
+
+    model: AllophantModel
+    static_data: Dict[str, np.ndarray]
+
+
+def build_model(
+    architecture: Architecture,
+    feature_size: int,
+    sample_rate: int,
+    attribute_graph: AttributeGraph,
+    attribute_indexer: Optional[PhoneticAttributeIndexer] = None,
+    wav2vec2_architecture: Optional[Wav2Vec2Architecture] = None,
+    dtype: torch.dtype = torch.float32,
+    head_dtype: Optional[torch.dtype] = None,
+    device=None,
+    param_dtype: Optional[torch.dtype] = None,
+) -> BuiltModel:
+    """The Allophant model of an ``nn`` configuration (reference :988-1025),
+    on ``device``, with zero weights and the plan's static tables in place.
+    The encoder is XLS-R 300M unless ``wav2vec2_architecture`` replaces it,
+    cut above the highest "OUTPUT_<i>" tap. Only the wav2vec2-pretrained
+    acoustic model is ported."""
+    layer_config = architecture.acoustic_model
+    if not isinstance(layer_config, Wav2Vec2PretrainedConfig):
+        raise ValueError(f"The port builds wav2vec2-pretrained acoustic models, not {type(layer_config).__name__}")
+    if sample_rate != 16_000:
+        raise ValueError(
+            "Audio resampling config and the sampling rate required by Wav2Vec2 do not"
+            f" match. Expected 16000Hz, got {sample_rate}Hz"
+        )
+    arch = wav2vec2_architecture if wav2vec2_architecture is not None else Wav2Vec2Architecture()
+    arch = arch.truncated(highest_specific_output_layer(attribute_graph))
+
+    language_allophones = None
+    if attribute_indexer is not None and architecture.projection.phoneme_layer != PhonemeLayerType.SHARED:
+        language_allophones = attribute_indexer.language_allophones
+    plan, static_data = build_projection_plan(
+        arch.hidden_size,
+        attribute_graph,
+        architecture.loss.BLANK_OFFSET,
+        architecture.projection,
+        language_allophones,
+        attribute_indexer,
+    )
+    model = AllophantModel(
+        arch, plan, dtype, head_dtype, device=device, param_dtype=param_dtype,
+        frozen_prefix=whole_run_frozen_prefix(layer_config),
+    )
+    from allophant_tpu_torch.weights import load_static_data
+
+    load_static_data(model, static_data)
+    return BuiltModel(model, static_data)

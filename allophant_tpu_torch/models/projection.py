@@ -4,22 +4,31 @@ plan order, each reading its dependencies' softmaxed posteriors and/or raw
 acoustic-model taps ("OUTPUT"/"OUTPUT_<i>"), with the embedding-composition
 phoneme layer (the zero-shot mechanism) and the allophone layer.
 
-The plan arrives as data (``ProjectionPlan.from_dict``): this module does not
-derive it from an attribute graph and phonetic indexer."""
+``build_projection_plan`` derives the plan and its static tables from an
+attribute graph, the projection config and the phonetic indexer, as the JAX
+package does; ``ProjectionPlan.from_dict`` reads a plan given as data."""
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from allophant_tpu_torch.config import (
+    EmbeddingCompositionConfig,
+    PhonemeLayerType,
+    ProjectionConfig,
+    ProjectionEntryConfig,
+)
 from allophant_tpu_torch.models.layers import Dense, DropoutRng, LayerNorm, dropout
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.oneshot_attention import NEG_INF
+from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
+from allophant_tpu_torch.phonetics.features import LanguageAllophoneMappings, PhoneticAttributeIndexer
 
 OUTPUT_DEPENDENCY = "OUTPUT"
 PHONEME_LAYER = "phoneme"
@@ -104,22 +113,180 @@ class ProjectionPlan:
             float(data.get("acoustic_model_dropout", 0.0)),
         )
 
-    def with_output_features(self, output_features: int) -> "ProjectionPlan":
-        """The same plan over an acoustic model of another width: every
-        "OUTPUT"/"OUTPUT_<i>" tap dependency takes the new size."""
 
-        def resize(node: NodePlan) -> NodePlan:
-            dependencies = tuple(
-                dataclasses.replace(dependency, size=output_features) if dependency.is_output_tap else dependency
-                for dependency in node.dependencies
-            )
-            return dataclasses.replace(
-                node,
-                input_size=sum(dependency.size for dependency in dependencies),
-                dependencies=dependencies,
+def build_allophone_arrays(
+    language_allophones: LanguageAllophoneMappings, blank_offset: int, phoneme_count: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """The dense [L, S, P] allophone matrix (1 at allophone positions, blank
+    identity diagonal) and the padded gather table [L, P, K] of shared-phone
+    indices (-1 padding) used by the allophone max-pool."""
+    num_languages = len(language_allophones.languages)
+    shared_count = len(language_allophones.shared_phones) + blank_offset
+    total_phonemes = phoneme_count + blank_offset
+
+    matrix = np.zeros((num_languages, shared_count, total_phonemes), dtype=np.float32)
+    max_allophones = 1
+    for mapping in language_allophones.allophones.values():
+        for allophones in mapping.values():
+            max_allophones = max(max_allophones, len(allophones))
+
+    gather = np.full((num_languages, total_phonemes, max_allophones + blank_offset), -1, dtype=np.int32)
+    for dense_index, (_language_index, mapping) in enumerate(language_allophones.allophones.items()):
+        for blank in range(blank_offset):
+            matrix[dense_index, blank, blank] = 1.0
+            gather[dense_index, blank, 0] = blank
+        for phoneme, allophones in mapping.items():
+            for position, allophone in enumerate(allophones):
+                matrix[dense_index, allophone + blank_offset, phoneme + blank_offset] = 1.0
+                gather[dense_index, phoneme + blank_offset, position] = allophone + blank_offset
+    return matrix, gather
+
+
+def _composition(
+    composition_config: EmbeddingCompositionConfig, training_attributes, output_size: int
+) -> Tuple[Tuple, np.ndarray]:
+    """The composition plan entry and the dense [P, F] feature table of the
+    phones the composition layer scores."""
+    if output_size != len(training_attributes) + 1:
+        raise ValueError(
+            f"Length of attributes with blanks ({len(training_attributes) + 1}) need to"
+            f" match the number of phones in the allophone mapping ({output_size})"
+        )
+    dense_table = training_attributes.dense_feature_table.astype(np.int64)
+    # Category counts per feature (+1 blank row at the front), offsets cumsum.
+    num_categories = np.concatenate(([0], dense_table.max(axis=0))) + 1
+    category_offsets = num_categories.cumsum()[:-1]
+    # Unused category rows are zeroed at init (reference :197-212).
+    unused = [False]
+    for column in range(dense_table.shape[1]):
+        counts = np.bincount(dense_table[:, column], minlength=int(num_categories[column + 1]))
+        unused.extend(counts == 0)
+    unused_rows = np.where(np.asarray(unused))[0]
+    plan = (
+        composition_config.embedding_size,
+        int(num_categories.sum()),
+        tuple(int(offset) for offset in category_offsets),
+        tuple(int(row) for row in unused_rows),
+        (int(dense_table.shape[0]), int(dense_table.shape[1])),
+    )
+    return plan, dense_table.astype(np.int32)
+
+
+def build_projection_plan(
+    output_features: int,
+    attribute_graph: AttributeGraph,
+    blank_offset: int,
+    projection_config: ProjectionConfig,
+    language_allophones: Optional[LanguageAllophoneMappings],
+    attribute_indexer: Optional[PhoneticAttributeIndexer],
+) -> Tuple["ProjectionPlan", Dict[str, np.ndarray]]:
+    """The static plan plus its tables (composition feature table, allophone
+    matrices and gather indices), as ``allophant_tpu/models/projection.py``
+    builds them."""
+    config = projection_config
+    uses_allophones = language_allophones is not None and config.phoneme_layer != PhonemeLayerType.SHARED
+    composition_config: Optional[EmbeddingCompositionConfig] = config.embedding_composition
+
+    dependency_names = set(attribute_graph.names())
+    if len(dependency_names) < len(attribute_graph):
+        raise ValueError("Dependencies contain duplicate keys")
+    if any(ProjectionEntryConfig.OUTPUT_PATTERN.match(name) for name in dependency_names):
+        raise ValueError(f"{ProjectionEntryConfig.OUTPUT_DEPENDENCY!r} is a reserved keyword")
+
+    static_data: Dict[str, np.ndarray] = {}
+    nodes: List[NodePlan] = []
+    required_output_layers = set()
+    composition_plan = None
+    allophone_shape = None
+
+    for node in attribute_graph.sort():
+        input_size = 0
+        dependencies = []
+        for target in node.dependencies:
+            attribute_node = attribute_graph.get(target)
+            if attribute_node is None:
+                # Acoustic model taps are pseudo-nodes, but only names matching
+                # OUTPUT/OUTPUT_<i>; anything else is a typo.
+                if not ProjectionEntryConfig.OUTPUT_PATTERN.match(target):
+                    raise ValueError(
+                        f"Unknown dependency {target!r} of classifier {node.name!r}:"
+                        " not a classifier name or an acoustic-model output tap"
+                        f" ({ProjectionEntryConfig.OUTPUT_DEPENDENCY!r}/"
+                        f"{ProjectionEntryConfig.OUTPUT_DEPENDENCY!r}_<layer>)"
+                    )
+                dependencies.append(DependencyPlan(target, output_features, True))
+                input_size += output_features
+                required_output_layers.add(target)
+                continue
+            size = attribute_node.size + (blank_offset if config.dependency_blanks else 0)
+            dependencies.append(DependencyPlan(attribute_node.name, size, False))
+            input_size += size
+        if not dependencies:
+            raise ValueError("Each class projection requires a dependency")
+
+        is_phoneme_layer = node.name == ProjectionEntryConfig.PHONEME_LAYER
+        node_uses_allophones = uses_allophones and is_phoneme_layer
+        if node_uses_allophones:
+            # The phone inventory (plus blank) is the classifier output;
+            # phonemes come out of the allophone pooling.
+            output_size = len(language_allophones.shared_phones) + blank_offset
+        else:
+            output_size = node.size + blank_offset
+
+        has_composition = is_phoneme_layer and composition_config is not None
+        projection_size = composition_config.embedding_size if has_composition else output_size
+        if has_composition:
+            if attribute_indexer is None:
+                raise ValueError(
+                    "Model configuration using attribute embedding composition requires"
+                    " an attribute indexer but got `None`"
+                )
+            if not node_uses_allophones:
+                training_attributes = attribute_indexer.full_attributes.subset(
+                    attribute_indexer.phonemes.tolist(), list(attribute_indexer.composition_features)
+                )
+            elif attribute_indexer.allophone_data is None:
+                raise ValueError(
+                    "Model configuration using attribute embedding composition and an"
+                    " allophone layer requires allophone data in the attribute indexer"
+                )
+            else:
+                training_attributes = attribute_indexer.allophone_data.shared_phone_indexer
+            composition_plan, static_data["composition_feature_table"] = _composition(
+                composition_config, training_attributes, output_size
             )
 
-        return dataclasses.replace(self, nodes=tuple(resize(node) for node in self.nodes))
+        if node_uses_allophones:
+            matrix, gather = build_allophone_arrays(language_allophones, blank_offset, node.size)
+            static_data["allophone_matrices"] = matrix
+            static_data["allophone_gather"] = gather
+            allophone_shape = (matrix.shape[0], matrix.shape[1], matrix.shape[2], gather.shape[2])
+
+        attention = None
+        if node.time_layer_config is not None:
+            attention = (node.time_layer_config.num_heads, node.time_layer_config.positional_embeddings)
+        nodes.append(
+            NodePlan(
+                node.name, input_size, projection_size, output_size, tuple(dependencies), attention,
+                has_composition, node_uses_allophones,
+            )
+        )
+
+    if not required_output_layers:
+        raise ValueError(
+            f"At least one of the input layers requires {ProjectionEntryConfig.OUTPUT_DEPENDENCY!r}"
+            " as a dependency"
+        )
+    plan = ProjectionPlan(
+        nodes=tuple(nodes),
+        blank_offset=blank_offset,
+        dependency_blanks=config.dependency_blanks,
+        output_dependencies=tuple(sorted(required_output_layers)),
+        composition=composition_plan,
+        allophone_shape=allophone_shape,
+        acoustic_model_dropout=config.acoustic_model_dropout,
+    )
+    return plan, static_data
 
 
 def sinusoidal_positions(length: int, size: int, dtype=torch.float32, device=None) -> torch.Tensor:

@@ -7,9 +7,11 @@ Each ``*_attention*`` / ``dropout_mask_bits`` wrapper launches its CUDA kernel
 (``csrc/oneshot_attention.cu``, ``csrc/attention_dropout.cu``,
 ``csrc/attention_backward.cu``) for CUDA tensors and runs its plain twin
 (``reference_*``) for CPU tensors; a shape or dtype a kernel does not take
-raises. The kernels serve every sequence length and every head width that is
-a multiple of 8 up to ``MAX_HEAD_DIM`` (``kernel_head_dim``), so the TPU's
-plan tables (bounded by VMEM) have no counterpart. ``OneshotAttention`` and
+raises. The kernels serve every sequence length and every head width
+(``head_plan``): a width that is not a multiple of 8 is zero-padded to one in
+the wrapper, which is exact, and a width above ``MAX_TILE_HEAD_DIM`` runs the
+chunked route (``csrc/attention_wide.cuh``), so the TPU's plan tables
+(bounded by VMEM) have no counterpart. ``OneshotAttention`` and
 ``OneshotDropoutAttention`` are the autograd functions the encoder calls.
 
 The dropout mask is the port's own: Mosaic's PRNG stream cannot be reproduced
@@ -29,6 +31,7 @@ import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from allophant_tpu_torch.kernels.build import check_launch, load_kernel
 
@@ -37,8 +40,10 @@ LOG2E = 1.4426950408889634
 # Softmax denominator clamp: a fully padded (zero-length) row stays finite.
 TINY_TOTAL = 1e-30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: The widest head the kernels take (XLS-R 2B's 120-wide heads run as 128).
-MAX_HEAD_DIM = 128
+#: The widest head of one tile (XLS-R 2B's 120-wide heads run as 128); wider
+#: heads run the chunked route, one block for each 128 output columns.
+MAX_TILE_HEAD_DIM = 128
+_HEAD_ALIGNMENT = 8  # columns: the kernels copy 16-byte (8 bf16) pieces of a row
 _ROW_ALIGNMENT = 16  # bytes: the bf16 kernels copy and read 16-byte rows
 
 _MASK32 = 0xFFFFFFFF
@@ -217,22 +222,43 @@ def check_row_alignment(name: str, shape, strides, storage_offset: int, item_siz
 
 
 def kernel_head_dim(name: str, model_dim: int, heads: int) -> int:
-    """The head width of [B, T, H*hd] inputs, which the kernels take when it is
-    a multiple of 8 from 8 to ``MAX_HEAD_DIM`` (instantiated at 32, 64, 80, 96
-    and 128; any other width runs as the next of them, zero-padded). Raises a
-    ValueError on any other."""
+    """The head width of [B, T, H*hd] inputs. The kernels take every width;
+    raises a ValueError only when ``model_dim`` does not split into ``heads``."""
     if heads < 1 or model_dim % heads:
         raise ValueError(f"{name}: a width of {model_dim} does not split into {heads} heads")
-    head_dim = model_dim // heads
-    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name} kernel takes head widths that are multiples of 8 up to {MAX_HEAD_DIM}, got {head_dim}"
-        )
-    return head_dim
+    return model_dim // heads
 
 
-def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> int:
-    """Raises on what the CUDA kernels do not take; returns the head width."""
+def head_plan(head_dim: int) -> Tuple[int, int]:
+    """How the kernels run a head of ``head_dim`` columns: (the width they are
+    launched at, the head zero-padded to the next multiple of 8; the number of
+    128-column chunks a block of the chunked route owns, 1 up to
+    ``MAX_TILE_HEAD_DIM``). Zero columns add nothing to q.k^T and their output
+    columns are cut off, so the padding is exact."""
+    if head_dim < 1:
+        raise ValueError(f"a head needs at least one column, got {head_dim}")
+    padded = -(-head_dim // _HEAD_ALIGNMENT) * _HEAD_ALIGNMENT
+    return padded, -(-padded // MAX_TILE_HEAD_DIM)
+
+
+def _pad_heads(tensor: torch.Tensor, heads: int, padded: int) -> torch.Tensor:
+    """[B, T, H*hd] -> [B, T, H*padded], each head's extra columns zero."""
+    batch, time, model_dim = tensor.shape
+    return F.pad(tensor.reshape(batch, time, heads, model_dim // heads), (0, padded - model_dim // heads)).reshape(
+        batch, time, heads * padded
+    )
+
+
+def _unpad_heads(tensor: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """[B, T, H*padded] -> [B, T, H*hd], each head's first ``head_dim`` columns."""
+    batch, time, model_dim = tensor.shape
+    return tensor.reshape(batch, time, heads, model_dim // heads)[..., :head_dim].reshape(batch, time, heads * head_dim)
+
+
+def _check_kernel_inputs(name: str, query, others, key_bias, heads: int):
+    """Raises on what the CUDA kernels do not take; returns the inputs as the
+    kernel takes them (each head zero-padded to a multiple of 8 where it is
+    not one), the true head width and the launched one."""
     if query.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, not {query.device}")
     batch, time, model_dim = query.shape
@@ -242,15 +268,20 @@ def _check_kernel_inputs(name: str, query, others, key_bias, heads: int) -> int:
     for tensor in (query, *others):
         if tensor.shape != query.shape or tensor.dtype != query.dtype or tensor.device != query.device:
             raise ValueError(f"{name}: every input must match query in shape, dtype and device")
+    if key_bias.shape != (batch, time) or key_bias.dtype != torch.float32 or key_bias.device != query.device:
+        raise ValueError(f"{name}: key_bias must be f32 [B, T] on the query's device")
+    padded, _ = head_plan(head_dim)
+    tensors = [query, *others]
+    if padded != head_dim:
+        tensors = [_pad_heads(tensor, heads, padded) for tensor in tensors]
+    for tensor in tensors:
         if tensor.stride(2) != 1:
             raise ValueError(f"{name} kernel needs a contiguous feature axis")
         if tensor.dtype == torch.bfloat16:
             check_row_alignment(name, tensor.shape, tensor.stride(), tensor.storage_offset(), tensor.element_size())
             if tensor.data_ptr() % _ROW_ALIGNMENT:
                 raise ValueError(f"{name}: the bf16 kernels need a {_ROW_ALIGNMENT}-byte-aligned data pointer")
-    if key_bias.shape != (batch, time) or key_bias.dtype != torch.float32 or key_bias.device != query.device:
-        raise ValueError(f"{name}: key_bias must be f32 [B, T] on the query's device")
-    return head_dim
+    return tensors, head_dim, padded
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -274,23 +305,25 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
     anything it does not take). ``oneshot_attention.launches`` counts launches."""
     if query.device.type == "cpu":
         return reference_oneshot(query, key, value, key_bias, sm_scale, heads)
-    head_dim = _check_kernel_inputs("oneshot_attention", query, (key, value), key_bias, heads)
+    (query, key, value), head_dim, padded = _check_kernel_inputs(
+        "oneshot_attention", query, (key, value), key_bias, heads
+    )
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     out = torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device)
     if batch == 0 or time == 0:
-        return out
+        return _unpad_heads(out, heads, head_dim)
     forward = load_kernel("oneshot_attention")
     with torch.cuda.device(query.device):
         status = forward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-            batch, time, heads, head_dim, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
+            batch, time, heads, padded, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, _DTYPE_CODES[query.dtype],
             torch.cuda.current_stream(query.device).cuda_stream,
         )
     check_launch("oneshot_attention", status)
     oneshot_attention.launches += 1
-    return out
+    return out if padded == head_dim else _unpad_heads(out, heads, head_dim)
 
 
 oneshot_attention.launches = 0
@@ -303,23 +336,25 @@ def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scal
     _check_rate(rate)
     if query.device.type == "cpu":
         return reference_oneshot_dropout(query, key, value, key_bias, seeds, sm_scale, heads, rate)
-    head_dim = _check_kernel_inputs("oneshot_dropout_attention", query, (key, value), key_bias, heads)
+    (query, key, value), head_dim, padded = _check_kernel_inputs(
+        "oneshot_dropout_attention", query, (key, value), key_bias, heads
+    )
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     out = torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device)
     if batch == 0 or time == 0:
-        return out
+        return _unpad_heads(out, heads, head_dim)
     forward = load_kernel("attention_dropout")
     with torch.cuda.device(query.device):
         status = forward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
-            batch, time, heads, head_dim, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
+            batch, time, heads, padded, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, *_u32_seeds(seeds), keep_threshold(rate), _keep_probability(rate),
             _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
         )
     check_launch("attention_dropout", status)
     oneshot_dropout_attention.launches += 1
-    return out
+    return out if padded == head_dim else _unpad_heads(out, heads, head_dim)
 
 
 oneshot_dropout_attention.launches = 0
@@ -335,12 +370,14 @@ def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optiona
         _check_rate(rate)
     if query.device.type == "cpu":
         return reference_oneshot_backward(query, key, value, grad, key_bias, seeds, sm_scale, heads, rate)
-    head_dim = _check_kernel_inputs("oneshot_attention_backward", query, (key, value, grad), key_bias, heads)
+    (query, key, value, grad), head_dim, padded = _check_kernel_inputs(
+        "oneshot_attention_backward", query, (key, value, grad), key_bias, heads
+    )
     batch, time, model_dim = query.shape
     key_bias = key_bias.contiguous()
     outputs = [torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device) for _ in range(3)]
     if batch == 0 or time == 0:
-        return tuple(outputs)
+        return tuple(_unpad_heads(tensor, heads, head_dim) for tensor in outputs)
     stats = torch.empty(3, batch, heads, time, dtype=torch.float32, device=query.device)
     seed0, seed1 = _u32_seeds(seeds) if rate is not None else (0, 0)
     threshold = keep_threshold(rate) if rate is not None else 0
@@ -350,14 +387,16 @@ def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optiona
         status = backward(
             query.data_ptr(), key.data_ptr(), value.data_ptr(), grad.data_ptr(), key_bias.data_ptr(),
             *(tensor.data_ptr() for tensor in outputs), stats.data_ptr(),
-            batch, time, heads, head_dim,
+            batch, time, heads, padded,
             ctypes.cast(_strides(query, key, value, grad, *outputs), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, sm_scale, seed0, seed1, threshold, inverse_keep, int(rate is not None),
             _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
         )
     check_launch("attention_backward", status)
     oneshot_attention_backward.launches += 1
-    return tuple(outputs)
+    if padded == head_dim:
+        return tuple(outputs)
+    return tuple(_unpad_heads(tensor, heads, head_dim) for tensor in outputs)
 
 
 oneshot_attention_backward.launches = 0

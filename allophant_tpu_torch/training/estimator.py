@@ -1,7 +1,8 @@
-"""Estimator, inference side (counterpart of the prediction surface of
-``allophant_tpu/training/estimator.py``): bucketed ``predict``, the fused greedy
-serving step ``predict_decoded``, the fused beam serving step
-``predict_beam_decoded``, ``map_allophones`` and ``downsampled_lengths``.
+"""Estimator (counterpart of ``allophant_tpu/training/estimator.py``): bucketed
+``predict``, the fused greedy serving step ``predict_decoded``, the fused beam
+serving step ``predict_beam_decoded``, ``map_allophones`` and
+``downsampled_lengths``; and for a model built from a configuration
+(``from_config``), ``train`` and ``save``.
 
 PyTorch runs eagerly, so there is no per-bucket compile cache; the audio is
 still bucketed exactly as the JAX estimator buckets it, because the width of
@@ -9,16 +10,20 @@ the decoded grid depends on the bucket."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from allophant_tpu_torch.config import Config
 from allophant_tpu_torch.data.batch import Batch
 from allophant_tpu_torch.device import resolve_device, set_float32_precision
 from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
 from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
+from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
+from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer, PhoneticIndexerState
+from allophant_tpu_torch.training.checkpoint import Checkpoint, EpochPosition, save_native, variables_from_model
 
 #: Serving precision presets: name -> (dtype, head_dtype, f32_matmul_precision).
 #: "float32" is full f32 (TF32 off for matmuls and cuDNN convolutions).
@@ -60,13 +65,22 @@ def _bucket_length(length: int, minimum: int = 1024) -> int:
 
 
 class Estimator:
-    """A model on a device with its precision preset, answering predictions."""
+    """A model on a device with its precision preset, answering predictions.
+    An Estimator built by ``from_config`` also carries what training and a
+    checkpoint need: the configuration, the feature size and sample rate, the
+    attribute graph, the epoch position, the history of validation points
+    and, after a restore, the serialized training state."""
 
     def __init__(
         self,
         model: AllophantModel,
         precision: str = DEFAULT_SERVING_PRECISION,
         device=None,
+        *,
+        config: Optional[Config] = None,
+        feature_size: int = 1,
+        sample_rate: int = 16_000,
+        attribute_graph: Optional[AttributeGraph] = None,
     ):
         self.device = resolve_device(device)
         dtype, head_dtype, f32_matmul_precision = resolve_precision(precision)
@@ -75,6 +89,92 @@ class Estimator:
         self.precision = precision
         self.f32_matmul_precision = f32_matmul_precision
         self.model = model.to(self.device).eval()
+        self.config = config
+        self.feature_size = feature_size
+        self.sample_rate = sample_rate
+        self.attribute_graph = attribute_graph
+        self.history: List[Any] = []
+        self.epoch = EpochPosition()
+        self.dataset_meta_data: List[Any] = []
+        # Serialized optimizer and early-stopping state to resume from
+        # (``TrainingRun.serialized_training_state``); consumed by ``train``.
+        self.training_state: Optional[bytes] = None
+
+    @classmethod
+    def from_config(
+        cls,
+        config: Config,
+        feature_size: int,
+        sample_rate: int,
+        attribute_graph: AttributeGraph,
+        attribute_indexer: Optional[PhoneticAttributeIndexer] = None,
+        wav2vec2_architecture=None,
+        load_pretrained_weights: bool = False,
+        seed: int = 0,
+        precision: Optional[str] = None,
+        device=None,
+    ) -> "Estimator":
+        """A trainable Estimator of ``config`` on ``device`` (CUDA unless the
+        caller asks for another; raises without one): float32 master
+        parameters drawn from ``seed`` (``weights.seeded_initialization``),
+        computed in the preset ``precision`` (default: "mixed" when the
+        config asks for mixed precision, else "float32"). Pretrained encoder
+        weights are not loaded: the port has no access to a model hub."""
+        from allophant_tpu_torch.models.allophant import build_model
+        from allophant_tpu_torch.weights import seeded_initialization
+
+        if load_pretrained_weights:
+            raise NotImplementedError("Loading pretrained encoder weights is not ported; pass load_pretrained_weights=False")
+        device = resolve_device(device)
+        if precision is None:
+            precision = "mixed" if config.nn.mixed_precision else "float32"
+        dtype, head_dtype, _ = resolve_precision(precision)
+        built = build_model(
+            config.nn, feature_size, sample_rate, attribute_graph, attribute_indexer, wav2vec2_architecture,
+            dtype=dtype, head_dtype=head_dtype, device=device, param_dtype=torch.float32,
+        )
+        seeded_initialization(built.model, seed)
+        return cls(
+            built.model, precision, device,
+            config=config, feature_size=feature_size, sample_rate=sample_rate, attribute_graph=attribute_graph,
+        )
+
+    def train(self, dataset_manager, tensorboard_dir: Optional[str] = None, skip_batches: int = 0, show_progress: bool = False):
+        """A ``TrainingRun``: an iterable yielding ``(TrainingStatus,
+        EpochStatistics)`` at every validation point, updating the model in
+        place. A restored ``training_state`` resumes the optimizer and early
+        stopping; ``skip_batches`` skips batches already consumed in the
+        current epoch (pass ``self.epoch.step`` to resume mid-epoch)."""
+        from allophant_tpu_torch.training.run import TrainingRun
+
+        return TrainingRun(self, dataset_manager, tensorboard_dir, skip_batches, self.training_state, show_progress)
+
+    def save(
+        self,
+        file_path: str,
+        optimizer_state: Optional[bytes] = None,
+        phonetic_indexer_state: Optional[PhoneticIndexerState] = None,
+        additional_parameters: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        """Writes the native checkpoint (``training/checkpoint.save_native``)."""
+        if self.config is None or self.attribute_graph is None:
+            raise ValueError("Only an Estimator built from a configuration can be saved")
+        save_native(
+            Checkpoint(
+                config=self.config,
+                feature_size=self.feature_size,
+                sample_rate=self.sample_rate,
+                attribute_graph=self.attribute_graph,
+                epoch=self.epoch,
+                phonetic_indexer_state=phonetic_indexer_state,
+                variables=variables_from_model(self.model),
+                optimizer_state=optimizer_state,
+                history=self.history,
+                dataset_meta_data=self.dataset_meta_data,
+                additional=additional_parameters,
+            ),
+            file_path,
+        )
 
     @property
     def classes(self):

@@ -15,8 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      and at T = 512 with rows ending on each side of the 64-key tile edges;
      bit-equal over two calls), with kernel, twin and library times (medians
      of three rounds) and the roofline bound;
-     K2 also at C = 100, 64, 1024 and 1, with its time per request and per
-     training step;
+     K2 also at C = 100, 64, 1024, 1280, 2048 and 1, with its time per
+     request and per training step (and at 1280 and 2048, the chunked
+     kernel's);
      Beam kernels: the CTC prefix beam search (K3) and its backtrace against
      their plain versions, integer-equal, at the serving shapes (B = 8,
      T = 511, C = 4 and 40), the stacked heads of one request, a 30 s
@@ -33,9 +34,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      at T = 512 with rows ending on each side of the 64-key tile edges, K4
      also against autograd of the forward twins, each bit-equal over two
      calls; the dropout-mask kernel (K6) integer-equal to its twin;
-     Head widths: K1, K5 and K4 at 32, 80, 120 and 128 in bf16 and f32
-     against their twins (K5 and K4 bit-equal over two calls), widths 136
-     and 100 raising, and bf16 times at 16 heads of each width; library
+     Head widths: K1, K5 and K4 at 12, 20, 32, 80, 120, 128, 136, 192 and
+     256 in bf16 and f32 against their twins (K5 and K4 bit-equal over two
+     calls; 12 and 20 zero-padded to 16 and 24, above 128 the chunked
+     route), and bf16 times at 16 heads of several widths; library
      times (scaled_dot_product_attention) with the backend pinned and named;
   4. serve: the full-width flagship (XLS-R 300M + hierarchical head, seeded
      random weights) under the default "mixed" preset answers three requests
@@ -58,7 +60,16 @@ Phases, each printing its own lines; any failure exits non-zero:
      the plain twins forbidden; the step time, audio-s/s and peak memory are
      printed, then one make_eval_step call;
   9. train float32: one deterministic step of a full-width 4-layer flagship
-     on the card and on the CPU: metrics, gradients and parameters compared.
+     on the card and on the CPU: metrics, gradients and parameters compared;
+ 10. train loop: the training loop from user inputs (the demo config, the
+     demo phoneme table, a synthetic UCLA corpus written to disk) through
+     Config, PhoneticAttributeIndexer, DatasetManager and
+     Estimator.from_config on the card: 4 steps and one step-based
+     validation with the twins forbidden, launches counted, then save, the
+     checkpoint decoded and held to the master parameters bit for bit; the
+     loop's time a step, its host share, validation time and peak memory;
+ 11. train loop float32: 2 steps of a 2-layer full-width flagship through the
+     loop on the card and on the CPU, losses compared.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -178,8 +189,19 @@ def phase_tensor_cores() -> None:
             capture_output=True, text=True, check=True, timeout=120,
         ).stdout
         counts = {name: len(re.findall(rf"\b{name}\.", sass)) for name in ("HMMA", "HGMMA")}
-        print(f"tensor cores: lib{library}.so SASS holds {counts['HMMA']} HMMA and {counts['HGMMA']} HGMMA instructions", flush=True)
+        # The chunked route's bf16 kernels (attention_wide.cuh, namespace wide).
+        wide_bf16 = [
+            text for text in re.split(r"\n\s*Function : ", sass)[1:]
+            if "4wide" in text.splitlines()[0] and "bfloat16" in text.splitlines()[0]
+        ]
+        wide_hmma = sum(len(re.findall(r"\bHMMA\.", text)) for text in wide_bf16)
+        print(
+            f"tensor cores: lib{library}.so SASS holds {counts['HMMA']} HMMA and {counts['HGMMA']} HGMMA instructions,"
+            f" {wide_hmma} HMMA in its {len(wide_bf16)} bf16 kernels of the chunked route",
+            flush=True,
+        )
         check(sum(counts.values()) > 0, f"lib{library}.so has no tensor-core instruction")
+        check(len(wide_bf16) > 0 and wide_hmma > 0, f"lib{library}.so: the chunked route's bf16 kernels use no tensor core")
 
 
 def phase_frame_encoder_sass() -> None:
@@ -245,7 +267,10 @@ def phase_frame_encoder(serve_batch: int, serve_samples: int) -> dict:
     entry = None
     # f32: exact erff in both, differing only in summation order (1e-4); bf16:
     # one rounding of O(4) values (2e-2).
-    shapes = [(serve_batch, serve_samples, 512), (2, 1024, 512), (2, 5 * 300 + 3, 100), (3, 2003, 64), (2, 4000, 1024), (2, 1500, 1)]
+    shapes = [
+        (serve_batch, serve_samples, 512), (2, 1024, 512), (2, 5 * 300 + 3, 100), (3, 2003, 64), (2, 4000, 1024),
+        (2, 4000, 1280), (2, 4003, 2048), (2, 1500, 1),
+    ]
     cases = [
         (batch, samples, channels, dtype, tolerance)
         for batch, samples, channels in shapes
@@ -265,6 +290,15 @@ def phase_frame_encoder(serve_batch: int, serve_samples: int) -> dict:
             flush=True,
         )
         check(got.shape == expected.shape and finite and error <= tolerance, f"frame_encoder {dtype_name} C={channels} disagrees: {error}")
+        if channels > 1024:
+            chunked_ms = median_ms(lambda: fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype), 10)
+            moved = batch * samples * 4 + 13 * channels * 4 + got.numel() * got.element_size()
+            chunked_bound, chunked_by = bound_ms(moved, 2 * 10 * got.numel(), "float32")
+            print(
+                f"time frame_encoder chunked {dtype_name} B={batch} S={samples} C={channels}: kernel {chunked_ms:.4f} ms,"
+                f" bound {chunked_bound:.4f} ms ({chunked_by})",
+                flush=True,
+            )
         if entry is None:
             frames, channels = got.shape[1], got.shape[2]
             kernel_ms = median_ms(lambda: fused_frame_conv(*inputs, eps=1e-5, out_dtype=dtype), 20)
@@ -578,18 +612,23 @@ def phase_dropout_attention() -> list:
 
 
 # Head widths other than 64: XLS-R 1B's 80 and 2B's 120 (which runs as the
-# 128 instantiation, zero-padded), 128 itself and 32.
-HEAD_WIDTHS = (32, 80, 120, 128)
+# 128 instantiation, zero-padded), 128 itself and 32; widths that are not a
+# multiple of 8 (12, 20: zero-padded by the wrappers) and widths above 128
+# (136, 192, 256: the chunked route of csrc/attention_wide.cuh).
+HEAD_WIDTHS = (12, 20, 32, 80, 120, 128, 136, 192, 256)
+TIMED_HEAD_WIDTHS = (64, 20, 80, 120, 128, 136, 256)
 
 
 def phase_head_widths() -> None:
     """K1, K5 and K4 at each of HEAD_WIDTHS, in bf16 and f32, against their
     twins at the limits of the 64-wide cases (q/k/v strided views of a fused
     projection, a ragged, a one-key and a zero-length row), K5 and K4 each
-    bit-equal over two calls; a width above 128 or not a multiple of 8 must
-    raise; then the bf16 times at XLS-R 1B / 2B-like shapes ([8, 499], 16
-    heads)."""
+    bit-equal over two calls; kernel_head_dim raising only for a width that
+    does not split into the heads; then the bf16 times at XLS-R 1B / 2B-like
+    shapes ([8, 499], 16 heads) of TIMED_HEAD_WIDTHS."""
     from allophant_tpu_torch.ops.oneshot_attention import (
+        head_plan,
+        kernel_head_dim,
         oneshot_attention,
         oneshot_attention_backward,
         oneshot_dropout_attention,
@@ -602,11 +641,16 @@ def phase_head_widths() -> None:
     lengths = [time_steps, time_steps - 37, 1, 0]
     for head_dim in HEAD_WIDTHS:
         scale = head_dim**-0.5
+        check(kernel_head_dim("check", heads * head_dim, heads) == head_dim, f"kernel_head_dim refuses {head_dim}")
+        padded, chunks = head_plan(head_dim)
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, bias, _ = attention_inputs(lengths, time_steps, heads, head_dim, dtype, fused_qkv=True)
             grad = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(head_dim), device="cuda").to(dtype)
             limits = KERNEL_LIMITS[dtype]
-            label = f"{str(dtype).removeprefix('torch.')} B={batch} T={time_steps} H={heads} hd={head_dim} strided lengths={lengths}"
+            label = (
+                f"{str(dtype).removeprefix('torch.')} B={batch} T={time_steps} H={heads} hd={head_dim}"
+                f" (launched at {padded}, {chunks} chunk{'s' if chunks > 1 else ''}) strided lengths={lengths}"
+            )
             print(f"kernel head width {label}:", flush=True)
             got = oneshot_attention(q, k, v, bias, scale, heads)
             compare("oneshot_attention against the twin", [("out", got, reference_oneshot(q, k, v, bias, scale, heads))], limits)
@@ -621,21 +665,14 @@ def phase_head_widths() -> None:
                 expected = reference_oneshot_backward(q, k, v, grad, bias, seeds, scale, heads, backward_rate)
                 compare(f"attention_backward rate={backward_rate} dq, dk, dv against the twin", list(zip(("dq", "dk", "dv"), got, expected)), limits)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)), f"attention_backward hd={head_dim}: two calls differ")
-    for head_dim in (136, 100):
-        q, k, v, bias, _ = attention_inputs([8, 8], 8, 2, head_dim, torch.bfloat16, fused_qkv=False)
-        for name, call in (
-            ("oneshot_attention", lambda: oneshot_attention(q, k, v, bias, 1.0, 2)),
-            ("attention_dropout", lambda: oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, 1.0, 2, rate)),
-            ("attention_backward", lambda: oneshot_attention_backward(q, k, v, q, bias, None, 1.0, 2, None)),
-        ):
-            try:
-                call()
-            except ValueError as error:
-                check("multiples of 8 up to 128" in str(error), f"{name} hd={head_dim}: {error}")
-            else:
-                raise SmokeFailure(f"{name} took a head width of {head_dim}")
-    print("kernel head width 136 and 100: every kernel raises ValueError naming the limit", flush=True)
-    for head_dim in (64, *HEAD_WIDTHS):
+    try:
+        kernel_head_dim("check", 100, 3)
+    except ValueError as error:
+        check("does not split" in str(error), f"kernel_head_dim(100, 3): {error}")
+    else:
+        raise SmokeFailure("kernel_head_dim took a width of 100 in 3 heads")
+    print(f"kernel head widths {HEAD_WIDTHS} taken; a width of 100 in 3 heads raises ValueError", flush=True)
+    for head_dim in TIMED_HEAD_WIDTHS:
         scale = head_dim**-0.5
         q, k, v, bias, lengths_tensor = attention_inputs([TRAIN_TIME] * TRAIN_BATCH, TRAIN_TIME, HEADS, head_dim, torch.bfloat16, fused_qkv=True)
         grad = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
@@ -644,7 +681,8 @@ def phase_head_widths() -> None:
         backward_ms = median_ms(lambda: oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, HEADS, rate), 10)
         bytes_moved, operations = attention_work(TRAIN_BATCH, TRAIN_TIME, HEADS, head_dim, lengths_tensor, 2)
         print(
-            f"time head width bf16 B={TRAIN_BATCH} T={TRAIN_TIME} H={HEADS} hd={head_dim}: oneshot_attention {forward_ms:.4f} ms"
+            f"time head width bf16 B={TRAIN_BATCH} T={TRAIN_TIME} H={HEADS} hd={head_dim} (launched at {head_plan(head_dim)[0]}):"
+            f" oneshot_attention {forward_ms:.4f} ms"
             f" (bound {bound_ms(bytes_moved, operations, 'bfloat16')[0]:.4f}), attention_dropout {dropout_ms:.4f} ms,"
             f" attention_backward {backward_ms:.4f} ms (bound {bound_ms(7 * q.numel() * 2, operations * 5 / 2, 'bfloat16')[0]:.4f})",
             flush=True,
@@ -1356,13 +1394,13 @@ def counted(run):
     return result, {name: counter.launches for name, counter in counters.items()}
 
 
-def phase_train(results: dict) -> None:
+def phase_train(results: dict) -> float:
     """The full-width training flagship ("mixed": bf16 encoder, f32 head, f32
     master weights) takes TRAIN_STEPS steps through make_train_step at A = 2,
     B = 8, 10 s, with the flagship's dropout (seeds from its config), Adam,
     schedule, clipping and frozen feature extractor; launch counters read
     around each step, the plain twins forbidden. Then one make_eval_step call
-    on the first microbatch."""
+    on the first microbatch. Returns the steady seconds a step."""
     from allophant_tpu_torch.demo import build_flagship_for_training
     from allophant_tpu_torch.models.layers import DropoutRng
     from allophant_tpu_torch.training.train_step import (
@@ -1441,6 +1479,7 @@ def phase_train(results: dict) -> None:
     check(launches == expected, f"eval step: launches {launches}, expected {expected}")
     check(np.isfinite(eval_metrics["loss_sum"]), "eval step: non-finite loss")
     print(f"eval step: loss_sum {eval_metrics['loss_sum']:.3f}, label_count {eval_metrics['label_count']:.0f}, launches {launches}", flush=True)
+    return steady
 
 
 def phase_train_float32() -> None:
@@ -1503,6 +1542,277 @@ def phase_train_float32() -> None:
     check(grad_share <= GRAD_SHARE and parameter_share <= 1.0, "float32 train step: card and CPU gradients or parameters disagree")
 
 
+LOOP_STEPS, LOOP_TRAIN_UTTERANCES, LOOP_DEV_UTTERANCES = 4, 8, 2
+# The corpus's languages: UCLA directory (ISO 639-3) -> the demo table's code.
+# The four of the flagship, so its allophone layer has its four languages.
+LOOP_LANGUAGES = {"deu": "de", "fra": "fr", "ita": "it", "spa": "es"}
+
+
+def write_ucla_corpus(root: Path, inventories: dict, utterances: int, seconds: tuple, seed: int) -> Path:
+    """A UCLA-format corpus under ``root``: for each language directory of
+    ``inventories`` (UCLA code -> phoneme list), ``utterances`` 16-bit WAVs of
+    seeded noise, ``seconds`` (low, high) long, each transcribed with 5-30
+    seeded phonemes of the inventory."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    for language, phonemes in inventories.items():
+        base = root / language
+        (base / "audio").mkdir(parents=True)
+        (base / "inventory").write_text("".join(f"{phoneme} 1\n" for phoneme in phonemes), encoding="utf-8")
+        raw, text = [], []
+        for index in range(utterances):
+            utterance = f"{language}_{index}"
+            raw.append(f"{utterance} noise\n")
+            text.append(f"{utterance} {' '.join(rng.choice(phonemes, int(rng.integers(5, 31))))}\n")
+            samples = int(rng.uniform(*seconds) * SAMPLE_RATE)
+            audio = (np.clip(0.1 * rng.standard_normal(samples), -1, 1) * 32767).astype("<i2")
+            with wave.open(str(base / "audio" / f"{utterance}.wav"), "wb") as file:
+                file.setnchannels(1)
+                file.setsampwidth(2)
+                file.setframerate(SAMPLE_RATE)
+                file.writeframes(audio.tobytes())
+        (base / "raw").write_text("".join(raw), encoding="utf-8")
+        (base / "text").write_text("".join(text), encoding="utf-8")
+    return root
+
+
+def loop_setup(root: Path, config_dict: dict, utterances, dev_utterances, seconds, seed):
+    """(config, indexer, manager) of a training run over a synthetic UCLA
+    corpus of LOOP_LANGUAGES written under ``root``. The indexer takes the
+    demo table's inventories in the corpus's language order (sorted
+    directories), so language ids agree. A UCLA dataset labels a phoneme by
+    its place in the whole table, the model's phoneme classes are the sorted
+    training inventory: each language's transcriptions use the table's
+    phonemes at the places of its own inventory's classes, so every label is
+    a class its allophone layer allows."""
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.data.speech_corpus import MultilingualSplits
+    from allophant_tpu_torch.data.ucla import UCLAPhoneticCorpus
+    from allophant_tpu_torch.demo import demo_indexer
+    from allophant_tpu_torch.training.run import DatasetManager
+
+    config = Config.load(config_dict)
+    codes = sorted(LOOP_LANGUAGES)
+    indexer = demo_indexer(config, languages=[LOOP_LANGUAGES[code] for code in codes])
+    table_order = indexer.full_subset_attributes.phonemes
+    inventories = {
+        code: [table_order[indexer.phoneme_index(phoneme)] for phoneme in indexer.phoneme_inventory(LOOP_LANGUAGES[code])]
+        for code in codes
+    }
+    train = UCLAPhoneticCorpus.load(str(write_ucla_corpus(root / "train", inventories, utterances, seconds, seed)), resample=SAMPLE_RATE)
+    splits = MultilingualSplits.single(train, "train")
+    if dev_utterances:
+        splits.dev = UCLAPhoneticCorpus.load(
+            str(write_ucla_corpus(root / "dev", inventories, dev_utterances, seconds, seed + 1)), resample=SAMPLE_RATE
+        )
+    return config, indexer, DatasetManager.from_config(config, splits, indexer)
+
+
+def parameter_groups(model) -> dict:
+    groups = ("acoustic_model.feature_extractor", "acoustic_model.feature_projection", "acoustic_model.encoder", "projection")
+    return {group: [name for name, _ in model.named_parameters() if name.startswith(group)] for group in groups}
+
+
+def phase_train_loop(results: dict, step_phase_seconds: float) -> None:
+    """The training loop from user inputs: the demo config (batch capped so a
+    microbatch holds at most TRAIN_BATCH x TRAIN_SECONDS, accumulation
+    TRAIN_ACCUMULATION, validation every LOOP_STEPS steps) through the port's
+    Config, PhoneticAttributeIndexer, DatasetManager over a synthetic UCLA
+    corpus on disk (4 languages x LOOP_TRAIN_UTTERANCES WAVs of 2-10 s, and
+    LOOP_DEV_UTTERANCES each for validation) and Estimator.from_config on the
+    card (the full-width flagship, "mixed"); ``train`` runs LOOP_STEPS steps
+    and one step-based validation with the twins forbidden, then ``save``.
+    Checks the launches (48 K5 and K4 a step, K2 once a microbatch and a
+    validation batch, K1 24 a validation batch), finite losses, a
+    bit-unchanged frozen extractor, moved trainable groups, and the
+    checkpoint decoded by the port's codec against the f32 master
+    parameters bit for bit."""
+    import tempfile
+
+    from allophant_tpu_torch.demo import demo_config_dict
+    from allophant_tpu_torch.training.checkpoint import read_native
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.training.run import TrainingStatus
+    from allophant_tpu_torch.weights import jax_params_from_state
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as directory:
+        root = Path(directory)
+        start = time.perf_counter()
+        config_dict = demo_config_dict()
+        config_dict["nn"].update(
+            batch_size=TRAIN_ACCUMULATION * TRAIN_BATCH * TRAIN_SECONDS * SAMPLE_RATE,
+            accumulation_factor=TRAIN_ACCUMULATION,
+            step_size=LOOP_STEPS,
+        )
+        config, indexer, manager = loop_setup(root, config_dict, LOOP_TRAIN_UTTERANCES, LOOP_DEV_UTTERANCES, (2, 10), seed=5)
+        estimator = Estimator.from_config(config, manager.feature_size, SAMPLE_RATE, manager.attribute_graph(), indexer, device="cuda")
+        model = estimator.model
+        layers = model.architecture.num_hidden_layers
+        validation_batches = sum(1 for _ in manager.validation_batches())
+        before = {name: parameter.detach().clone() for name, parameter in model.named_parameters()}
+        torch.cuda.synchronize()
+        print(
+            f"train loop: setup {time.perf_counter() - start:.2f} s (corpus of {len(manager.splits.train)} + {len(manager.splits.dev)}"
+            f" WAVs written and read, indexer, {layers}-layer flagship from the config, {estimator.precision});"
+            f" {validation_batches} validation batches",
+            flush=True,
+        )
+
+        run = estimator.train(manager)
+        step_spans, validation_spans = [], []
+
+        def timed(function, spans):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                value = function(*args, **kwargs)
+                torch.cuda.synchronize()
+                spans.append((begin, time.perf_counter()))
+                return value
+
+            return call
+
+        run._train_step = timed(run._train_step, step_spans)
+        run._validate = timed(run._validate, validation_spans)
+        counters = kernel_counters()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        loop_start = time.perf_counter()
+        statistics = []
+        iterator = iter(run)
+        with TwinsForbidden():
+            for status, stats in iterator:
+                statistics.append((status, stats))
+                if status in (TrainingStatus.STEP, TrainingStatus.IMPROVED):
+                    break
+            iterator.close()
+        torch.cuda.synchronize()
+        loop_seconds = time.perf_counter() - loop_start
+        launches = {name: counter.launches for name, counter in counters.items()}
+        for name, count in launches.items():
+            results[name] += count
+        peak = torch.cuda.max_memory_allocated()
+        check(len(step_spans) == LOOP_STEPS and len(validation_spans) == 1, f"loop ran {len(step_spans)} steps, {len(validation_spans)} validations")
+        expected = {
+            "oneshot_attention": layers * validation_batches,
+            "attention_dropout": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
+            "attention_backward": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
+            "dropout_mask": 0,
+            "frame_encoder": TRAIN_ACCUMULATION * LOOP_STEPS + validation_batches,
+        }
+        check(launches == expected, f"train loop: launches {launches}, expected {expected}")
+        (status, stats), = statistics
+        check(np.isfinite(stats.train_loss) and np.isfinite(stats.validation_loss), f"train loop: non-finite losses {stats}")
+        check(all(np.isfinite(value) for value in stats.classifier_losses.values()), "train loop: a head's loss is not finite")
+        groups = parameter_groups(model)
+        parameters = dict(model.named_parameters())
+        moved = {group: sum(not torch.equal(before[name], parameters[name]) for name in names) for group, names in groups.items()}
+        print(f"train loop: {status.value} at step {stats.global_step}: train loss {stats.train_loss:.6f}, validation loss"
+              f" {stats.validation_loss:.6f}, grad_norm {stats.gradient_norm:.6f}, lr {stats.learning_rate:.3e};"
+              f" parameters moved per group {moved} of { {group: len(names) for group, names in groups.items()} }; launches {launches}",
+              flush=True)
+        frozen, *trainable = groups
+        check(moved[frozen] == 0, "train loop: the frozen feature extractor moved")
+        check(all(moved[group] > 0 for group in trainable), "train loop: a trainable group did not move")
+
+        step_seconds = [end - begin for begin, end in step_spans]
+        first_start, last_end = step_spans[0][0], step_spans[-1][1]
+        between = sum(end - begin for begin, end in validation_spans if first_start <= begin <= last_end)
+        steps_wall = last_end - first_start - between
+        host = steps_wall - sum(step_seconds)
+        print(
+            f"train loop time: {loop_seconds:.3f} s for {LOOP_STEPS} steps and one validation; from the first step's start"
+            f" to the last step's end {steps_wall / LOOP_STEPS * 1e3:.1f} ms a step, of which the step itself"
+            f" {np.mean(step_seconds) * 1e3:.1f} ms (steps 2-{LOOP_STEPS}: {np.mean(step_seconds[1:]) * 1e3:.1f} ms) and"
+            f" the host's batching, stacking and copy between steps {host / (LOOP_STEPS - 1) * 1e3:.1f} ms"
+            f" ({host / steps_wall:.3f} of that wall time), beside {step_phase_seconds * 1e3:.1f} ms a step of the step"
+            f" phase (8 x 10 s microbatches); validation {validation_spans[0][1] - validation_spans[0][0]:.3f} s"
+            f" ({validation_batches} batches); peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)",
+            flush=True,
+        )
+
+        save_start = time.perf_counter()
+        path = root / "flagship.ckpt"
+        estimator.save(str(path), phonetic_indexer_state=indexer.state())
+        save_seconds = time.perf_counter() - save_start
+        contents = read_native(str(path))
+        expected_params = jax_params_from_state(dict(model.named_parameters()), model.architecture)
+
+        def leaves(tree, prefix=()):
+            for key, value in tree.items():
+                if isinstance(value, dict):
+                    yield from leaves(value, (*prefix, key))
+                else:
+                    yield (*prefix, key), value
+
+        saved = dict(leaves(contents["variables"]["params"]))
+        wanted = dict(leaves(expected_params))
+        check(saved.keys() == wanted.keys(), "checkpoint: parameter tree differs")
+        differing = [key for key, value in wanted.items() if value.dtype != np.float32 or not np.array_equal(saved[key], value)]
+        check(not differing, f"checkpoint: {len(differing)} leaves differ from the master parameters, e.g. {differing[:3]}")
+        metadata = contents["metadata"]
+        check(
+            metadata["epoch"] == estimator.epoch.to_dict() and metadata["config"] == json.loads(json.dumps(config.dump())),
+            "checkpoint: metadata differs",
+        )
+        print(
+            f"train loop save: {path.stat().st_size / 2**20:.1f} MiB in {save_seconds:.2f} s; decoded by the port's codec,"
+            f" {len(saved)} parameter leaves bit-equal to the f32 master parameters",
+            flush=True,
+        )
+
+
+def phase_train_loop_float32() -> None:
+    """The loop on the card and on the CPU (plain twins) from the same weights:
+    a full-width 2-layer flagship in "float32", every dropout off, SGD with
+    momentum, 2 steps (A = 2, B = 1, 2 s), train losses compared at the float32
+    step phase's limit (1e-4 relative). SGD because Adam's first update is
+    lr * sign(g) for a leaf whose exact gradient is 0, where each device's f32
+    rounding picks the sign."""
+    import tempfile
+
+    from allophant_tpu_torch.demo import demo_config_dict
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.training.estimator import Estimator
+
+    architecture = dataclasses.replace(
+        Wav2Vec2Architecture(), num_hidden_layers=2, hidden_dropout=0.0, activation_dropout=0.0, attention_dropout=0.0,
+        feat_proj_dropout=0.0,
+    )
+    config_dict = demo_config_dict()
+    config_dict["nn"].update(
+        batch_size=2, batching_mode="utterances", accumulation_factor=2, maximum_iterations=1, mixed_precision=False,
+        optimizer={"algorithm": "sgd", "learning_rate": 0.01, "momentum": 0.9},
+    )
+    config_dict["nn"]["projection"]["acoustic_model_dropout"] = 0.0
+    losses = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop32_") as directory:
+        card = None
+        for device in ("cuda", "cpu"):
+            config, indexer, manager = loop_setup(Path(directory) / device, config_dict, 1, 0, (1.9, 2.0), seed=6)
+            estimator = Estimator.from_config(
+                config, manager.feature_size, SAMPLE_RATE, manager.attribute_graph(), indexer,
+                wav2vec2_architecture=architecture, precision="float32", device=device, seed=3,
+            )
+            if card is None:
+                card = estimator
+            else:
+                estimator.model.load_state_dict({key: value.cpu() for key, value in card.model.state_dict().items()})
+            (status, stats), _finished = list(estimator.train(manager))
+            check(stats.global_step == 2, f"float32 loop on {device}: {stats.global_step} steps")
+            losses[device] = stats.train_loss
+    relative = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(
+        f"train loop float32 card vs cpu (2 layers, A=2 B=1 2 s, 2 steps): train loss {losses['cuda']:.6f} vs"
+        f" {losses['cpu']:.6f}, relative difference {relative:.3e} (tolerance 1e-4)",
+        flush=True,
+    )
+    check(relative <= 1e-4, "float32 loop: card and CPU losses disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1551,9 +1861,13 @@ def main() -> int:
     phase_wide_encoder(launches)
     torch.cuda.empty_cache()
     phase_float32()
-    phase_train(launches)
+    step_seconds = phase_train(launches)
     torch.cuda.empty_cache()
     phase_train_float32()
+    torch.cuda.empty_cache()
+    phase_train_loop(launches, step_seconds)
+    torch.cuda.empty_cache()
+    phase_train_loop_float32()
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

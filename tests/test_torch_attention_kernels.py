@@ -8,7 +8,10 @@ twins and the JAX package:
   or dropped, nothing to P.V; a zero-length row visits every key;
 - the layout rule of the wrappers: cp.async and ldmatrix move 16-byte rows,
   so every head row of a bf16 input must start on a 16-byte boundary, which
-  the encoder's strided q/k/v views of one fused projection do.
+  the encoder's strided q/k/v views of one fused projection do;
+- the head widths the wrappers plan: zero-padded to a multiple of 8, and
+  above 128 split into 128-column chunks (the twins at those widths against
+  JAX's references).
 
 Inputs come from seeded numpy."""
 
@@ -20,16 +23,20 @@ import torch
 
 import jax.numpy as jnp
 
-from allophant_tpu.ops.oneshot_attention import _reference_bthd
+from allophant_tpu.ops.oneshot_attention import _reference_bthd, _reference_bthd_dropout
 from allophant_tpu_torch.ops.oneshot_attention import (
     NEG_INF,
     _exponentials,
     _keep_mask,
     _keep_probability,
     _merge_heads,
+    _pad_heads,
     _split_heads,
+    _unpad_heads,
     check_row_alignment,
+    head_plan,
     reference_oneshot,
+    reference_oneshot_backward,
     reference_oneshot_dropout,
 )
 
@@ -148,3 +155,80 @@ def test_row_alignment_rule(layout):
     else:
         with pytest.raises(ValueError, match=error):
             check_row_alignment(*arguments)
+
+
+# Head widths the CUDA kernels take since they zero-pad to a multiple of 8
+# (12, 20) and split above 128 into 128-column chunks (192, 256): the twins,
+# which the kernels are held to on the card, against JAX's references.
+WIDE_AND_ODD_WIDTHS = pytest.mark.parametrize("head_dim", [12, 20, 192, 256])
+
+
+def _width_inputs(head_dim: int, seed: int):
+    rng = np.random.default_rng(seed)
+    batch, time, heads = 2, 96, 2
+    q, k, v, g = (rng.standard_normal((batch, time, heads * head_dim)).astype(np.float32) for _ in range(4))
+    bias = np.where(np.arange(time)[None] < np.array([[time], [time - 29]]), 0.0, NEG_INF).astype(np.float32)
+    return q, k, v, g, bias, heads
+
+
+@WIDE_AND_ODD_WIDTHS
+def test_twin_at_other_head_widths_equals_jax(head_dim):
+    q, k, v, _g, bias, heads = _width_inputs(head_dim, seed=head_dim)
+    scale = head_dim**-0.5
+    expected = np.asarray(_reference_bthd(*map(jnp.asarray, (q, k, v, bias)), scale, heads))
+    got = reference_oneshot(*map(torch.from_numpy, (q, k, v, bias)), scale, heads).numpy()
+    np.testing.assert_allclose(got, expected, atol=2e-5)
+
+
+@WIDE_AND_ODD_WIDTHS
+def test_dropout_twin_at_other_head_widths_equals_jax(head_dim):
+    """The dropout twin against ``_reference_bthd_dropout`` given the port's
+    Philox mask; the backward twin against JAX's gradient of it."""
+    import jax
+
+    q, k, v, g, bias, heads = _width_inputs(head_dim, seed=head_dim + 1)
+    scale = head_dim**-0.5
+    keep = jnp.asarray(_keep_mask(SEEDS, q.shape[0], heads, q.shape[1], RATE, "cpu").numpy())
+    function = lambda *qkv: _reference_bthd_dropout(*qkv, jnp.asarray(bias), keep, scale, heads, RATE)  # noqa: E731
+    expected, vjp = jax.vjp(function, *map(jnp.asarray, (q, k, v)))
+    tensors = [torch.from_numpy(x) for x in (q, k, v, g, bias)]
+    got = reference_oneshot_dropout(*tensors[:3], tensors[4], SEEDS, scale, heads, RATE)
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), atol=2e-5)
+    gradients = reference_oneshot_backward(*tensors, SEEDS, scale, heads, RATE)
+    for name, ours, theirs in zip(("dq", "dk", "dv"), gradients, vjp(jnp.asarray(g))):
+        theirs = np.asarray(theirs)
+        np.testing.assert_allclose(ours.numpy(), theirs, atol=5e-5 * np.abs(theirs).max(), err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "head_dim, launched, chunks",
+    [(8, 8, 1), (12, 16, 1), (20, 24, 1), (64, 64, 1), (120, 120, 1), (128, 128, 1), (130, 136, 2), (136, 136, 2),
+     (192, 192, 2), (256, 256, 2), (257, 264, 3), (1, 8, 1)],
+)
+def test_head_plan(head_dim, launched, chunks):
+    """The wrappers' plan as a pure function of the head width: the width
+    the kernels are launched at (the next multiple of 8) and the 128-column
+    chunks a block of the chunked route owns."""
+    assert head_plan(head_dim) == (launched, chunks)
+
+
+@pytest.mark.parametrize("head_dim", [12, 20])
+def test_padded_heads_are_exact(head_dim):
+    """Zero columns add nothing to q.k^T and their output columns are cut
+    off: the twin over the padded heads, unpadded, is the twin itself
+    (bit for bit, f32)."""
+    q, k, v, g, bias, heads = _width_inputs(head_dim, seed=7)
+    padded, _ = head_plan(head_dim)
+    tensors = [torch.from_numpy(x) for x in (q, k, v, g)]
+    scale = head_dim**-0.5
+    wide = [_pad_heads(tensor, heads, padded) for tensor in tensors]
+    assert wide[0].shape[-1] == heads * padded
+    assert torch.equal(_unpad_heads(_pad_heads(tensors[0], heads, padded), heads, head_dim), tensors[0])
+    bias_tensor = torch.from_numpy(bias)
+    direct = reference_oneshot(*tensors[:3], bias_tensor, scale, heads)
+    through_padding = _unpad_heads(reference_oneshot(*wide[:3], bias_tensor, scale, heads), heads, head_dim)
+    torch.testing.assert_close(through_padding, direct, rtol=0, atol=1e-6)
+    direct = reference_oneshot_backward(*tensors, bias_tensor, SEEDS, scale, heads, RATE)
+    through = reference_oneshot_backward(*wide, bias_tensor, SEEDS, scale, heads, RATE)
+    for ours, theirs in zip(through, direct):
+        torch.testing.assert_close(_unpad_heads(ours, heads, head_dim), theirs, rtol=0, atol=1e-6)

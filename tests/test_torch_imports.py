@@ -1,6 +1,7 @@
-"""Import guard of the PyTorch port: no module of allophant_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, pandas, msgpack or the JAX package — the
-machine with the GPU has none of them."""
+"""Import guard of the PyTorch port: no module of allophant_tpu_torch (the
+C++ build helper ``native/build.py`` included), and not chip_smoke.py,
+imports JAX, flax, pandas, msgpack, regex or the JAX package — the machine
+with the GPU has none of them."""
 
 import ast
 import subprocess
@@ -10,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "msgpack", "allophant_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "msgpack", "regex", "allophant_tpu")
 SOURCES = sorted((ROOT / "allophant_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

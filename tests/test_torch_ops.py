@@ -127,16 +127,17 @@ class TestFrameEncoderTwin:
         assert got.dtype == torch_dtype and got.shape == (2, audio.shape[1] // 5 - 1, 128)
         np.testing.assert_allclose(got.float().numpy(), expected, atol=atol)
 
-    @pytest.mark.parametrize("channels", [64, 100])
+    @pytest.mark.parametrize("channels", [64, 100, 1280])
     @pytest.mark.parametrize(
         "jax_dtype, torch_dtype, atol",
         [(jnp.float32, torch.float32, 1e-5), (jnp.bfloat16, torch.bfloat16, 2e-2)],
         ids=["f32-exact-erf", "bf16"],
     )
     def test_matches_pallas_kernel_at_other_channel_counts(self, monkeypatch, channels, jax_dtype, torch_dtype, atol):
-        """C other than 512, which the CUDA kernel takes up to 1024: the twin
-        against the Pallas kernel with the exact erf swapped in, at the
-        tolerances of test_matches_pallas_kernel."""
+        """C other than 512, which the CUDA kernel takes in one pass up to
+        1024 and in chunks of 1024 above (1280): the twin against the Pallas
+        kernel with the exact erf swapped in, at the tolerances of
+        test_matches_pallas_kernel."""
         import jax
 
         from allophant_tpu.ops import frame_encoder as jax_frame_encoder
@@ -233,12 +234,11 @@ class TestOneshotAttentionTwin:
         np.testing.assert_allclose(got[valid], expected[valid], atol=2e-5)
 
     def test_kernel_head_widths(self):
-        """The CUDA kernels take every multiple of 8 up to 128 and raise a
-        ValueError naming the limit on any other width."""
-        assert [kernel_head_dim("k", 16 * width, 16) for width in (8, 64, 80, 120, 128)] == [8, 64, 80, 120, 128]
-        for model_dim, heads in ((16 * 136, 16), (2 * 100, 2), (2 * 4, 2)):
-            with pytest.raises(ValueError, match="multiples of 8 up to 128"):
-                kernel_head_dim("k", model_dim, heads)
+        """The CUDA kernels take every head width (the wrappers zero-pad one
+        that is not a multiple of 8, and above 128 the chunked route runs);
+        only a width that does not split into the heads raises."""
+        widths = (8, 64, 80, 120, 128, 136, 100, 4, 12, 20, 192, 256)
+        assert [kernel_head_dim("k", 16 * width, 16) for width in widths] == list(widths)
         with pytest.raises(ValueError, match="does not split"):
             kernel_head_dim("k", 100, 3)
 
