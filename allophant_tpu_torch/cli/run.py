@@ -1,0 +1,622 @@
+"""``allophant`` CLI of the port (counterpart of ``allophant_tpu/cli/run.py``):
+generate-config, predict, evaluate and edits, with the JAX CLI's flags.
+
+    python -m allophant_tpu_torch.cli.run predict CORPUS CHECKPOINT -o predictions.jsonl
+    python -m allophant_tpu_torch.cli.run evaluate predictions.jsonl -j
+
+Inference and the device scorer run on the GPU; ``--cpu`` runs them on the
+CPU instead (the plain PyTorch path), as the JAX CLI's ``--cpu`` selects its
+CPU backend. ``train`` and ``export`` are not ported yet."""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import sys
+import time
+from argparse import ArgumentParser, FileType, Namespace
+from enum import Enum
+from typing import Any, Dict, List, Optional, Sequence, Set
+
+import numpy as np
+
+MAIN_LOGGER = logging.getLogger("allophant_tpu_torch")
+
+
+class TrainingLanguageMode(Enum):
+    INCLUDE = "include"
+    EXCLUDE = "exclude"
+    ONLY = "only"
+
+
+def _device(arguments: Namespace) -> Optional[str]:
+    """The device of a subcommand: the CPU with ``--cpu``, else the GPU."""
+    return "cpu" if getattr(arguments, "cpu", False) else None
+
+
+# ---------------------------------------------------------------------------
+# generate-config
+# ---------------------------------------------------------------------------
+
+
+def generate_config(arguments: Namespace) -> None:
+    """Writes the commented default config template (to stdout without a path)."""
+    from allophant_tpu_torch.package_data import DEFAULT_CONFIG_PATH
+
+    if arguments.config_path is None:
+        with open(DEFAULT_CONFIG_PATH, "r", encoding="utf-8") as file:
+            sys.stdout.write(file.read())
+    else:
+        shutil.copyfile(DEFAULT_CONFIG_PATH, arguments.config_path)
+
+
+# ---------------------------------------------------------------------------
+# predict
+# ---------------------------------------------------------------------------
+
+
+def _dataset_from_data(data, config, indexer):
+    from allophant_tpu_torch.data.dataset import (
+        BatchType,
+        PhoneticallySegmentedDataset,
+        SamplesProcessor,
+        TranscribedDataset,
+    )
+
+    processor = SamplesProcessor.from_config(
+        config, data.audio_info.sample_rate or config.preprocessing.resample or 16_000, indexer
+    )
+    if data.UTTERANCE_TYPE == "phonetically-segmented":
+        return PhoneticallySegmentedDataset(BatchType.RAW, data, processor)
+    return TranscribedDataset(BatchType.RAW, data, processor)
+
+
+def _filter_split_raw_batches_by_language(batch_generator, data, excluded_languages: Set[str]):
+    for original_batch in batch_generator:
+        for language_id, batch in original_batch.split_by_language():
+            language_code = data.language(language_id)
+            if language_code in excluded_languages:
+                continue
+            yield batch, [language_code] * len(batch)
+
+
+def predict(arguments: Namespace) -> None:
+    """Batch inference of a corpus into a JSONL predictions file."""
+    from allophant_tpu_torch import predictions
+    from allophant_tpu_torch.config import BatchingMode, PhonemeLayerType, ProjectionEntryConfig
+    from allophant_tpu_torch.data import corpus_loading
+    from allophant_tpu_torch.data.batching import Batcher
+    from allophant_tpu_torch.evaluation_runner import _fix_inventories, _missing_mappings
+    from allophant_tpu_torch.ops.decode import DeviceBeamCTCDecoder, GreedyCTCDecoder
+    from allophant_tpu_torch.phonetics import language_codes
+    from allophant_tpu_torch.predictions import FeatureDecoder, JsonlWriter, PredictionMetaData, UtterancePrediction
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.utils import progress_bar
+
+    n_candidates = arguments.n_best
+    if n_candidates > arguments.ctc_beam:
+        raise ValueError(f"n_best {n_candidates} larger than the beam size {arguments.ctc_beam}")
+
+    # --precision picks a serving preset; --bf16 is the legacy spelling of
+    # --precision bfloat16. Default (None) = DEFAULT_SERVING_PRECISION.
+    precision = arguments.precision
+    if arguments.bf16:
+        precision = "bfloat16"
+    device = _device(arguments)
+    inference_estimator, attribute_indexer = Estimator.restore(arguments.model_path, precision=precision, device=device)
+    config = inference_estimator.config
+
+    is_allophone_model = config.nn.projection.phoneme_layer == PhonemeLayerType.ALLOPHONES
+    if arguments.language_phonemes and not is_allophone_model:
+        raise ValueError(
+            "--language-phonemes can only be used with models that use an allophone layer."
+            f" The restored checkpoint layer type is {config.nn.projection.phoneme_layer}"
+        )
+
+    feature_names = list(attribute_indexer.feature_names)
+    is_composition_model = config.nn.projection.embedding_composition is not None
+
+    map_allophones = False
+    composition_output_name = ProjectionEntryConfig.PHONEME_LAYER
+    phone_indexer = None
+    if is_allophone_model:
+        if attribute_indexer.allophone_data is None:
+            raise ValueError("Allophone data is missing from the attribute indexer")
+        phone_indexer = attribute_indexer.allophone_data.shared_phone_indexer
+        feature_names.append(ProjectionEntryConfig.PHONE)
+        composition_output_name = ProjectionEntryConfig.PHONE
+        if arguments.language_phonemes:
+            map_allophones = True
+        else:
+            feature_names.remove(ProjectionEntryConfig.PHONEME_LAYER)
+
+    if arguments.feature_subset is not None:
+        if not set(arguments.feature_subset).issubset(set(feature_names)):
+            raise ValueError(
+                f"The provided feature subset {sorted(arguments.feature_subset)} "
+                f"is not a subset of {sorted(feature_names)}"
+            )
+        feature_names = arguments.feature_subset
+
+    MAIN_LOGGER.info("Predicting with attributes: %s", feature_names)
+
+    batching_mode = config.nn.batching_mode if arguments.batch_mode is None else BatchingMode(arguments.batch_mode)
+    batch_size = arguments.batch_size
+    if batch_size is None:
+        batch_size = max(config.nn.batch_size // max(config.nn.accumulation_factor, 1), 1)
+    batcher = Batcher(batch_size, batching_mode, data_workers=arguments.data_workers)
+
+    mode = TrainingLanguageMode(arguments.training_languages)
+    corpus_languages = config.data.languages if mode == TrainingLanguageMode.ONLY else None
+    exclude_known = mode == TrainingLanguageMode.EXCLUDE
+
+    test_data = corpus_loading.load_corpus(
+        arguments.dataset_path,
+        arguments.dataset_type,
+        config.preprocessing.resample,
+        corpus_languages,
+        only_primary_script=config.data.only_primary_script,
+        progress_bar=not arguments.no_progress,
+    ).test
+
+    test_languages = list(test_data.languages)
+    excluded_languages: Set[str] = set()
+    if exclude_known:
+        known = {language_codes.standardize_to_iso6393(code) for code in config.data.languages}
+        kept = []
+        for language in test_languages:
+            if language in known:
+                excluded_languages.add(language)
+            else:
+                kept.append(language)
+        test_languages = kept
+        MAIN_LOGGER.info("Excluding languages: %s", excluded_languages)
+
+    if batching_mode == BatchingMode.FRAMES or arguments.lengths is not None:
+        if arguments.lengths is not None:
+            test_data_lengths = corpus_loading.preprocessed_features_or_lengths(
+                arguments.lengths, {"test": test_data.languages}
+            )["test"].lengths
+        else:
+            test_data_lengths = _corpus_lengths(test_data)
+    else:
+        test_data_lengths = None
+
+    dataset = _dataset_from_data(test_data, config, attribute_indexer)
+    model_output_start_offset = config.nn.loss.BLANK_OFFSET
+
+    ctc_decoders = predictions.feature_decoders(attribute_indexer, arguments.ctc_beam, feature_names, n_candidates, device)
+
+    per_language_decoders = None
+    # The allophone map takes the phone head's log-probs over the training
+    # phones, so with --language-phonemes the phone head keeps them and is not
+    # recomposed over each language's inventory. (The JAX CLI recomposes it
+    # and the map then gathers phone classes the recomposed head does not
+    # have.)
+    if is_composition_model and not map_allophones:
+        attributes = attribute_indexer.composition_features
+        language_inventories = {language: test_data.inventory(language) for language in test_languages}
+        if arguments.fix_unicode:
+            language_inventories = _fix_inventories(
+                language_inventories, _missing_mappings(attribute_indexer, language_inventories)
+            )
+        per_language_decoders = {
+            language: FeatureDecoder(
+                attribute_indexer.full_attributes.subset(inventory, attributes),
+                arguments.ctc_beam,
+                n_candidates,
+                device,
+            )
+            for language, inventory in language_inventories.items()
+        }
+
+    batch_generator = batcher.batches(dataset, test_data_lengths)
+    if per_language_decoders is not None or excluded_languages:
+        batch_generator = _filter_split_raw_batches_by_language(batch_generator, test_data, excluded_languages)
+    else:
+        batch_generator = (
+            (batch, [test_data.language(int(language_id)) for language_id in batch.language_ids])
+            for batch in batch_generator
+        )
+
+    ipa_layers = {ProjectionEntryConfig.PHONEME_LAYER, ProjectionEntryConfig.PHONE}
+    with JsonlWriter(
+        arguments.output,
+        PredictionMetaData(
+            str(vars(arguments)),
+            arguments.dataset_type,
+            test_languages,
+            config.nn.projection.feature_set,
+            attribute_indexer.state(),
+            feature_names,
+            {language: test_data.inventory(language) for language in test_languages},
+        ),
+        use_gzip=arguments.compress,
+    ) as writer:
+        progress = progress_bar(enabled=not arguments.no_progress, desc="predict", unit="utt")
+
+        def launch(batch, language_batch):
+            """Device work only: the forward and every head's decode are queued
+            without synchronising with the device. Copying to the host and
+            writing the JSONL happen in ``finish``, one batch later, so the
+            device computes batch i+1 while the host drains and writes batch i.
+
+            When every head decodes greedily (beam width 1), the fused path
+            ``predict_decoded`` returns one packed grid of all heads; when
+            every head runs the same beam, ``predict_beam_decoded`` does the
+            same for the beam search and its backtrace."""
+            language_decoder = None
+            feature_matrix = None
+            if per_language_decoders is not None:
+                language_decoder = per_language_decoders[language_batch[0]]
+                ctc_decoders[composition_output_name] = language_decoder.decoder
+                feature_matrix = language_decoder.feature_matrix
+
+            decoders_snapshot = dict(ctc_decoders)
+            if all(isinstance(decoder, GreedyCTCDecoder) for decoder in decoders_snapshot.values()):
+                heads = tuple(sorted(decoders_snapshot))
+                grid, _lengths = inference_estimator.predict_decoded(
+                    batch, feature_matrix, heads=heads, map_allophones=map_allophones
+                )
+                return batch, language_batch, language_decoder, heads, ("fused", grid)
+
+            beam_widths = {
+                decoder._beam_width
+                for decoder in decoders_snapshot.values()
+                if isinstance(decoder, DeviceBeamCTCDecoder)
+            }
+            if len(beam_widths) == 1 and all(
+                isinstance(decoder, DeviceBeamCTCDecoder) for decoder in decoders_snapshot.values()
+            ):
+                heads = tuple(sorted(decoders_snapshot))
+                fused = inference_estimator.predict_beam_decoded(
+                    batch, feature_matrix, heads=heads, beam_width=beam_widths.pop(), map_allophones=map_allophones
+                )
+                return batch, language_batch, language_decoder, (heads, decoders_snapshot), ("fused_beam", *fused)
+
+            model_outputs = inference_estimator.predict(batch, feature_matrix, time_major=False)
+            # Outputs stay on the device in batch-first layout, which the
+            # decoders take as they are.
+            outputs = dict(model_outputs.outputs)
+            if map_allophones:
+                outputs[ProjectionEntryConfig.PHONEME_LAYER] = inference_estimator.map_allophones(
+                    outputs[ProjectionEntryConfig.PHONE], batch.language_ids, time_major=False
+                )
+            batch_size_now = len(batch)
+            output_lengths = model_outputs.lengths[:batch_size_now]
+            dispatched = {
+                name: decoder.dispatch(outputs[name][:batch_size_now], output_lengths)
+                for name, decoder in decoders_snapshot.items()
+            }
+            return batch, language_batch, language_decoder, decoders_snapshot, dispatched
+
+        def token_values(name, tokens, language_decoder):
+            """Decoded token ids -> IPA or feature value strings: IPA layers
+            offset by the blank, attribute layers by the model's output start
+            offset."""
+            if name in ipa_layers:
+                indices = tokens - 1  # blank offset
+                if language_decoder is not None:
+                    return list(language_decoder.attributes.phoneme(indices))
+                if name == ProjectionEntryConfig.PHONE:
+                    return list(phone_indexer.phoneme(indices))
+                return list(attribute_indexer.phoneme(indices))
+            return attribute_indexer.feature_values(name, tokens - model_output_start_offset)
+
+        def finish(state):
+            batch, language_batch, language_decoder, decoders_now, dispatched = state
+            batch_size_now = len(batch)
+            prediction_batches: Dict[str, List[List[List[str]]]] = {}
+            if isinstance(dispatched, tuple) and dispatched[0] == "fused":
+                # Fused greedy path: one grid copy for every head.
+                heads = decoders_now  # head names in grid order
+                grid = dispatched[1].cpu().numpy()
+                for head_index, name in enumerate(heads):
+                    lane = grid[head_index]
+                    counts = lane[:, 0]
+                    tokens = lane[:, 1:]
+                    prediction_batches[name] = [
+                        [token_values(name, tokens[row, : counts[row]].astype(np.int64), language_decoder)]
+                        for row in range(batch_size_now)
+                    ]
+            elif isinstance(dispatched, tuple) and dispatched[0] == "fused_beam":
+                # Fused beam path: two copies (tokens, scores) for every head.
+                heads, decoders_now = decoders_now
+                collected = dispatched[1].cpu().numpy().astype(np.int64)
+                scores = dispatched[2].cpu().numpy()
+                greedy_collected: Dict[str, Any] = {}
+                beam_collected = {
+                    name: decoders_now[name]._assemble(collected[head_index], scores[head_index])
+                    for head_index, name in enumerate(heads)
+                }
+            else:
+                # Mixed greedy and beam heads: the greedy heads drain together
+                # through one packed copy, the beam heads through stacked grids.
+                greedy_collected = GreedyCTCDecoder.collect_many(
+                    {
+                        name: dispatched[name]
+                        for name, decoder in decoders_now.items()
+                        if isinstance(decoder, GreedyCTCDecoder)
+                    },
+                    # JSONL records carry no timesteps.
+                    with_timesteps=False,
+                )
+                beam_decoders = {
+                    name: decoder
+                    for name, decoder in decoders_now.items()
+                    if isinstance(decoder, DeviceBeamCTCDecoder)
+                }
+                beam_collected = DeviceBeamCTCDecoder.collect_many(
+                    {name: dispatched[name] for name in beam_decoders}, beam_decoders
+                )
+            if not prediction_batches:
+                for name, decoder in decoders_now.items():
+                    if name in greedy_collected:
+                        beam_results = greedy_collected[name]
+                    elif name in beam_collected:
+                        beam_results = beam_collected[name]
+                    else:
+                        beam_results = decoder.collect(dispatched[name])
+                    prediction_batch = []
+                    for result in range(len(beam_results)):
+                        candidates = []
+                        for beam_index in range(min(n_candidates, len(beam_results[result]))):
+                            tokens = np.asarray(beam_results[result][beam_index].tokens, dtype=np.int64)
+                            candidates.append(token_values(name, tokens, language_decoder))
+                        prediction_batch.append(candidates)
+                    prediction_batches[name] = prediction_batch
+
+            label_batches = batch.raw_labels
+            for index in range(batch_size_now):
+                labels = [engine_labels[index] for engine_labels in label_batches]
+                writer.write(
+                    UtterancePrediction(
+                        language_batch[index],
+                        batch.utterance_ids[index],
+                        {name: rows[index] for name, rows in prediction_batches.items()},
+                        labels,
+                    )
+                )
+            progress.update(batch_size_now)
+
+        # One-batch-deep pipeline: batch i+1's device work is queued before
+        # batch i is drained and written. ALLOPHANT_PREDICT_TIMING=1 prints
+        # each batch's wall time and audio seconds to stderr, in the JAX CLI's
+        # format.
+        timing = os.environ.get("ALLOPHANT_PREDICT_TIMING") == "1"
+        last_mark = time.perf_counter()
+
+        def mark(audio_seconds: float) -> None:
+            nonlocal last_mark
+            if not timing:
+                return
+            now = time.perf_counter()
+            print(
+                f"[predict-timing] batch {audio_seconds:.1f} audio-s in {now - last_mark:.3f}s",
+                file=sys.stderr,
+                flush=True,
+            )
+            last_mark = now
+
+        pending = None
+        pending_audio = 0.0
+        for batch, language_batch in batch_generator:
+            state = launch(batch, language_batch)
+            if pending is not None:
+                finish(pending)
+                mark(pending_audio)
+            pending = state
+            pending_audio = float(np.asarray(batch.lengths).sum()) / (config.preprocessing.resample or 16_000)
+        if pending is not None:
+            finish(pending)
+            mark(pending_audio)
+        progress.close()
+
+
+def _corpus_lengths(corpus) -> Optional[np.ndarray]:
+    reader = getattr(corpus, "read_lengths", None)
+    if reader is None:
+        return None
+    lengths: List[int] = []
+    for _language, generator in reader():
+        lengths.extend(generator)
+    return np.asarray(lengths, dtype=np.int64)
+
+
+# ---------------------------------------------------------------------------
+# evaluate / edits
+# ---------------------------------------------------------------------------
+
+
+def evaluate(arguments: Namespace) -> None:
+    """Prediction file -> per-language, per-classifier error rates."""
+    from allophant_tpu_torch.evaluation_runner import compute_edit_statistics, summarize_edit_statistics
+    from allophant_tpu_torch.predictions import PredictionReader
+
+    with PredictionReader(arguments.prediction_path, arguments.decompress) as reader:
+        statistics = compute_edit_statistics(
+            reader,
+            map_phonemes=not arguments.no_remap,
+            fix_unicode=arguments.fix_unicode,
+            split_complex=arguments.split_complex,
+            scorer="host" if arguments.host_scorer else "device",
+            show_progress=not arguments.no_progress,
+            device=_device(arguments),
+        )
+        results = summarize_edit_statistics(statistics, reader.metadata.classifiers, str(vars(arguments)))
+
+    if arguments.output is not None:
+        with arguments.output as file:
+            if arguments.json:
+                file.write(results.dumps())
+            else:
+                file.write(str(results))
+    elif arguments.json:
+        print(results.dumps())
+    else:
+        print(results)
+
+
+def edits(arguments: Namespace) -> None:
+    """Prediction file -> per-utterance alignment operations."""
+    from allophant_tpu_torch.evaluation_runner import compute_edits
+    from allophant_tpu_torch.predictions import JsonlWriter, PredictionReader
+
+    with PredictionReader(arguments.prediction_path, arguments.decompress) as reader:
+        with JsonlWriter(arguments.output, reader.metadata, use_gzip=arguments.compress) as writer:
+            for utterance_edits in compute_edits(
+                reader,
+                map_phonemes=not arguments.no_remap,
+                fix_unicode=arguments.fix_unicode,
+                split_complex=arguments.split_complex,
+            ):
+                writer.write(utterance_edits)
+
+
+# ---------------------------------------------------------------------------
+# Parser
+# ---------------------------------------------------------------------------
+
+
+def make_parser() -> ArgumentParser:
+    from allophant_tpu_torch.training.checkpoint import VERSION
+
+    progress_parser = ArgumentParser(add_help=False)
+    progress_parser.add_argument("--no-progress", action="store_true", help="Disables progress printing")
+
+    fix_inventory_parser = ArgumentParser(add_help=False)
+    fix_inventory_parser.add_argument(
+        "--fix-unicode", action="store_true",
+        help="Attempts resolving phonemes by performing unicode normalization",
+    )
+
+    cpu_parser = ArgumentParser(add_help=False)
+    cpu_parser.add_argument(
+        "--cpu", action="store_true", help="Runs on the CPU (the plain PyTorch path) instead of the GPU"
+    )
+
+    dataset_processing_parser = ArgumentParser(add_help=False, parents=[cpu_parser])
+    dataset_processing_parser.add_argument(
+        "dataset_path", help="Path to a corpus containing phonetically transcribed utterances"
+    )
+    dataset_processing_parser.add_argument(
+        "-w", "--data-workers", type=int, default=None,
+        help="Default: a single prefetch thread builds the batches; 0 disables prefetching."
+        " Worker processes (N >= 1) are not ported and raise",
+    )
+
+    parser = ArgumentParser(description="Transcribes and evaluates with universal phoneme recognizer models")
+    parser.add_argument("-v", "--version", action="version", version=f"%(prog)s {VERSION}")
+    subparsers = parser.add_subparsers(dest="mode")
+    subparsers.required = True
+
+    config_parser = subparsers.add_parser(
+        "generate-config", help="Generates a configuration file from a default template"
+    )
+    config_parser.add_argument(
+        "config_path", nargs="?", default=None, help="Path for the new config file (stdout if omitted)"
+    )
+
+    error_analysis_parser = ArgumentParser(add_help=False, parents=[cpu_parser])
+    error_analysis_parser.add_argument(
+        "prediction_path", help="Path to a file containing labeled predictions from `predict`"
+    )
+    error_analysis_parser.add_argument(
+        "-d", "--decompress", default=None, action="store_true", help="Forces gzip decompression of the input"
+    )
+    error_analysis_parser.add_argument(
+        "--no-remap", action="store_true",
+        help="Disables train-to-target phoneme remapping before computing edit statistics",
+    )
+    error_analysis_parser.add_argument(
+        "-s", "--split-complex", action="store_true",
+        help="Splits complex segments in predictions and references before comparison",
+    )
+    error_analysis_parser.add_argument(
+        "--host-scorer", action="store_true",
+        help="Scores with the per-utterance native engine instead of the batched device DP",
+    )
+
+    evaluate_parser = subparsers.add_parser(
+        "evaluate",
+        help="Evaluates a predictions file",
+        parents=[progress_parser, fix_inventory_parser, error_analysis_parser],
+    )
+    evaluate_parser.add_argument("-j", "--json", action="store_true", help="Outputs evaluation results in json format")
+    evaluate_parser.add_argument(
+        "-o", "--output", type=FileType("x", encoding="utf-8"), help="Writes evaluation outputs to the given file"
+    )
+
+    compressed_output_parser = ArgumentParser(add_help=False)
+    compressed_output_parser.add_argument("-o", "--output", default=None, help="Writes output to the given file")
+    compressed_output_parser.add_argument(
+        "-c", "--compress", action="store_true", default=None, help="Uses gzip compression for outputs"
+    )
+
+    subparsers.add_parser(
+        "edits",
+        help="Computes the lowest cost Levenshtein edit operations for detailed analysis",
+        parents=[progress_parser, fix_inventory_parser, error_analysis_parser, compressed_output_parser],
+    )
+
+    predict_parser = subparsers.add_parser(
+        "predict",
+        parents=[dataset_processing_parser, progress_parser, fix_inventory_parser, compressed_output_parser],
+        help="Transcribes a corpus into a predictions file",
+    )
+    predict_parser.add_argument(
+        "--training-languages",
+        choices=[mode.value for mode in TrainingLanguageMode],
+        default=TrainingLanguageMode.INCLUDE.value,
+        help="Only evaluate on, include, or exclude languages the model was trained on",
+    )
+    predict_parser.add_argument("model_path", help="Model id or path to the model checkpoint for transcribing the data")
+    predict_parser.add_argument(
+        "-t", "--dataset-type", choices=["common-voice", "ucla-phonetic"],
+        default="ucla-phonetic", help="Type of the evaluation dataset",
+    )
+    predict_parser.add_argument(
+        "-l", "--lengths", help="Precomputed feature lengths (required for utterance batching only)"
+    )
+    predict_parser.add_argument("-s", "--batch-size", type=int, default=None, help="Batch size used for evaluation")
+    predict_parser.add_argument(
+        "-m", "--batch-mode", choices=["frames", "utterances"], default=None, help="Type of batching"
+    )
+    predict_parser.add_argument(
+        "-f", "--feature-subset", type=lambda codes: codes.split(","),
+        help="Comma separated subset of features (including phoneme) to evaluate on",
+    )
+    predict_parser.add_argument("-b", "--ctc-beam", type=int, default=1, help="Beam size used during beam decoding")
+    predict_parser.add_argument(
+        "-n", "--n-best", type=int, default=1, help="Uses the best result from the n highest scoring beams"
+    )
+    predict_parser.add_argument(
+        "--language-phonemes", action="store_true", default=None,
+        help="For allophone models, outputs language-specific phoneme classifiers",
+    )
+    predict_parser.add_argument(
+        "--precision", choices=["float32", "float32_high", "mixed", "bfloat16"], default=None,
+        help="Serving precision preset (default: 'mixed', a bf16 encoder with an f32 head)."
+        " 'float32_high' allows TF32 on the GPU; 'float32' is full float32",
+    )
+    predict_parser.add_argument("--bf16", action="store_true", help="Legacy alias for --precision bfloat16")
+    return parser
+
+
+def main(args: Sequence[str] | None = None) -> None:
+    arguments = make_parser().parse_args(sys.argv[1:] if args is None else args)
+    if arguments.mode == "generate-config":
+        generate_config(arguments)
+    elif arguments.mode == "evaluate":
+        evaluate(arguments)
+    elif arguments.mode == "predict":
+        predict(arguments)
+    elif arguments.mode == "edits":
+        edits(arguments)
+    else:
+        raise ValueError(f"Unsupported action: {arguments.mode}")
+
+
+if __name__ == "__main__":
+    main()

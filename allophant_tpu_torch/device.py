@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,16 @@ def resolve_device(device=None) -> torch.device:
             "No CUDA device is available; pass device='cpu' to run the plain PyTorch path"
         )
     return resolved
+
+
+def to_device(array, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) on ``device``. To a CUDA device it
+    goes through pinned memory and an asynchronous copy, so the caller does
+    not wait for the work already queued on the stream."""
+    tensor = array if isinstance(array, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return tensor.pin_memory().to(device, non_blocking=True)
+    return tensor.to(device)
 
 
 def set_float32_precision(f32_matmul_precision: str) -> None:

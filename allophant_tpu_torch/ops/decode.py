@@ -18,7 +18,7 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from allophant_tpu_torch.device import resolve_device
+from allophant_tpu_torch.device import resolve_device, to_device
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.beam_kernel import MAX_CLASSES, backtrace_cuda, beam_search_cuda
 
@@ -518,7 +518,7 @@ def beam_search_heads(
         stacked_lengths = lengths.repeat(len(members))
         parents, emitted, group_scores = beam_search_device(stacked, stacked_lengths, beam_width, blank_index)
         group_collected = backtrace_on_device(parents, emitted, stacked_lengths)
-        index = torch.tensor(members, device=device)
+        index = to_device(torch.tensor(members), device)
         collected[index] = group_collected.view(time, len(members), batch, beam_width).transpose(0, 1).to(torch.int16)
         scores[index] = group_scores.view(len(members), batch, beam_width)
     return collected, scores

@@ -33,6 +33,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from allophant_tpu_torch.device import resolve_device
 from allophant_tpu_torch.kernels.build import check_launch, load_kernel
 
 NEG_INF = -1e9
@@ -107,10 +108,11 @@ def reference_dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int,
     return bits.to(torch.uint32)
 
 
-def dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device="cpu") -> torch.Tensor:
-    """K6: u32 [B, H, T, T] draws on ``device`` (the twin on the CPU, the kernel
-    on a CUDA device). ``dropout_mask_bits.launches`` counts launches."""
-    device = torch.device(device)
+def dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device=None) -> torch.Tensor:
+    """K6: u32 [B, H, T, T] draws on ``device`` (CUDA unless the caller asks for
+    the CPU, where the twin runs; raises without a CUDA device).
+    ``dropout_mask_bits.launches`` counts launches."""
+    device = resolve_device(device)
     if device.type == "cpu":
         return reference_dropout_mask_bits(seeds, batch, heads, time, device)
     if device.type != "cuda":

@@ -396,7 +396,11 @@ class PhonemeIndexer:
         return int(self._phonemes.get_loc(phoneme))
 
     def phoneme(self, index):
-        return self._phonemes[index]
+        """The phoneme at ``index``, or the list of them at an array of indices
+        (as indexing the JAX package's pandas ``Index`` gives)."""
+        if np.ndim(index) == 0:
+            return self._phonemes[int(index)]
+        return [self._phonemes[position] for position in np.asarray(index).ravel().tolist()]
 
     def state(self) -> PhoneticIndexerState:
         return PhoneticIndexerState(self.phonemes.tolist())

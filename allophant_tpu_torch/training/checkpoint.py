@@ -1,13 +1,23 @@
-"""The native checkpoint, written (counterpart of the save half of
-``allophant_tpu/training/checkpoint.py``): JSON metadata and the model's
-variables in one msgpack file that the JAX package's ``load_native`` reads.
+"""Checkpoints (counterpart of ``allophant_tpu/training/checkpoint.py``): the
+native format, written and restored, and a reader for the reference's torch
+checkpoints.
 
-The ``variables`` field holds the JAX package's variable tree (``params`` and
-``buffers``) in flax's msgpack layout, built from the port's float32 master
-parameters by the inverse weight bridge (``weights.jax_params_from_state``);
-``optimizer_state`` holds the port's own bytes
-(``TrainingRun.serialized_training_state``). The codec is the port's
-(``msgpack_codec``)."""
+The native file is msgpack: JSON metadata and the model's variables in one
+file, readable by the JAX package's ``load_native`` and written by its
+``save_native``. The ``variables`` field holds the JAX package's variable tree
+(``params`` and ``buffers``) in flax's msgpack layout; the port builds it from
+its float32 master parameters by the inverse weight bridge
+(``weights.jax_params_from_state``) and loads it through
+``weights.load_jax_variables``. ``optimizer_state`` holds the writer's own
+bytes (the port's ``TrainingRun.serialized_training_state``). The codec is the
+port's (``msgpack_codec``).
+
+A reference checkpoint is one ``torch.save`` file of the reference's
+marshmallow-dumped ``Checkpoint`` (config, attribute graph, indexer state,
+``model_state`` under the reference's tensor names, ...);
+``load_reference_checkpoint`` reads it with ``weights_only=True`` and
+``convert_reference_model_state`` maps its tensor names onto the JAX
+package's parameter tree. Orbax directories are not ported."""
 
 from __future__ import annotations
 
@@ -18,7 +28,10 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from allophant_tpu_torch.config import Config
+from allophant_tpu_torch.config import Config, TransformerAcousticModelConfig
+from allophant_tpu_torch.models.hf_conversion import convert_wav2vec2_state
+from allophant_tpu_torch.models.projection import ProjectionPlan
+from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticIndexerState
 from allophant_tpu_torch.training import msgpack_codec
@@ -54,7 +67,9 @@ class EpochPosition:
 @dataclasses.dataclass
 class Checkpoint:
     """Checkpoint contents, independent of the file format. ``variables`` is
-    the JAX package's variable tree as nested dicts of numpy arrays."""
+    the JAX package's variable tree as nested dicts of numpy arrays (native
+    checkpoints); ``reference_model_state`` the reference's tensors by their
+    torch names (reference checkpoints)."""
 
     config: Config
     feature_size: int
@@ -63,6 +78,7 @@ class Checkpoint:
     epoch: EpochPosition
     phonetic_indexer_state: Optional[PhoneticIndexerState]
     variables: Optional[Dict] = None
+    reference_model_state: Optional[Dict[str, np.ndarray]] = None
     optimizer_state: Optional[bytes] = None
     history: List[Any] = dataclasses.field(default_factory=list)
     dataset_meta_data: List[Any] = dataclasses.field(default_factory=list)
@@ -102,26 +118,186 @@ def save_native(checkpoint: Checkpoint, file_path: str) -> None:
     os.replace(temporary, file_path)
 
 
-def read_native(file_path: str) -> Dict[str, Any]:
-    """The raw contents of a native checkpoint: ``metadata`` (decoded JSON),
-    ``variables`` (the variable tree, arrays as numpy) and
-    ``optimizer_state`` (bytes or None). Restoring an Estimator from them is
-    not ported yet."""
+def _is_native(file_path: str) -> bool:
+    with open(file_path, "rb") as file:
+        head = file.read(64)
+    return NATIVE_MAGIC in head
+
+
+def load_native(file_path: str) -> Checkpoint:
+    """Reads a native checkpoint, whichever package wrote it; flax's chunked
+    arrays are rebuilt (``msgpack_codec.unchunk``)."""
     with open(file_path, "rb") as file:
         payload = msgpack_codec.unpackb(file.read())
     if payload.get("magic") != NATIVE_MAGIC:
         raise ValueError(f"{file_path} is not a native checkpoint")
-    return {
-        "metadata": json.loads(payload["metadata"]),
-        "variables": msgpack_codec.unpackb(payload["variables"]),
-        "optimizer_state": payload.get("optimizer_state"),
+    metadata = json.loads(payload["metadata"])
+    indexer_state = metadata.get("phonetic_indexer_state")
+    return Checkpoint(
+        config=Config.load(metadata["config"]),
+        feature_size=int(metadata["feature_size"]),
+        sample_rate=int(metadata["sample_rate"]),
+        attribute_graph=AttributeGraph.from_dict(metadata["attribute_graph"]),
+        epoch=EpochPosition.from_dict(metadata.get("epoch")),
+        phonetic_indexer_state=None if indexer_state is None else PhoneticIndexerState.from_dict(indexer_state),
+        variables=msgpack_codec.unchunk(msgpack_codec.unpackb(payload["variables"])),
+        optimizer_state=payload.get("optimizer_state"),
+        history=metadata.get("history", []),
+        dataset_meta_data=metadata.get("dataset_meta_data", []),
+        additional=metadata.get("additional"),
+        version=metadata.get("version", "unknown"),
+    )
+
+
+def load_reference_checkpoint(file_path: str) -> Checkpoint:
+    """Loads a reference (torch) checkpoint file: the marshmallow-dumped dict
+    saved by the reference's ``Checkpoint.save``, read with
+    ``weights_only=True`` (no pickled code runs)."""
+    import torch
+
+    data = torch.load(file_path, map_location="cpu", weights_only=True)
+    model_state = {
+        key: value.numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        for key, value in data["model_state"].items()
     }
+    return Checkpoint(
+        config=Config.load(data["config"]),
+        feature_size=int(data["feature_size"]),
+        sample_rate=int(data["sample_rate"]),
+        attribute_graph=AttributeGraph.from_dict(data["attribute_graph"]),
+        epoch=EpochPosition.from_dict(data.get("epoch")),
+        phonetic_indexer_state=PhoneticIndexerState.from_dict(data["phonetic_indexer_state"]),
+        reference_model_state=model_state,
+        history=[],
+        dataset_meta_data=data.get("dataset_meta_data", []),
+        additional=data.get("additional"),
+        version=str(data.get("allophant_version", "reference")),
+    )
+
+
+#: The file of an orbax checkpoint directory that marks it as one.
+ORBAX_METADATA_FILE = "allophant_meta.json"
+
+
+def load_checkpoint(file_path: str) -> Checkpoint:
+    """Dispatches between the native msgpack format and reference torch
+    checkpoints. Accepts a local path or a HuggingFace model id, whose
+    ``allophant.pt`` is looked up in the local HuggingFace cache only."""
+    if os.path.isdir(file_path) and os.path.isfile(os.path.join(file_path, ORBAX_METADATA_FILE)):
+        raise NotImplementedError(
+            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 2)"
+        )
+    if not os.path.isfile(file_path):
+        resolved = _resolve_hub_file(file_path)
+        if resolved is None:
+            raise FileNotFoundError(f"No checkpoint found at {file_path!r}")
+        file_path = resolved
+    if _is_native(file_path):
+        return load_native(file_path)
+    return load_reference_checkpoint(file_path)
+
+
+def _resolve_hub_file(model_id: str, file_name: str = "allophant.pt") -> Optional[str]:
+    """``file_name`` of ``model_id`` in the local HuggingFace hub cache
+    (``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
+    ``~/.cache/huggingface/hub``) at the revision ``refs/main`` names, or None.
+    Nothing is downloaded."""
+    if model_id.count("/") != 1:
+        return None
+    cache = os.environ.get("HF_HUB_CACHE") or os.path.join(
+        os.environ.get("HF_HOME") or os.path.join(os.path.expanduser("~"), ".cache", "huggingface"), "hub"
+    )
+    repository = os.path.join(cache, "models--" + model_id.replace("/", "--"))
+    try:
+        with open(os.path.join(repository, "refs", "main"), "r", encoding="utf-8") as file:
+            revision = file.read().strip()
+    except OSError:
+        return None
+    candidate = os.path.join(repository, "snapshots", revision, file_name)
+    return candidate if os.path.isfile(candidate) else None
+
+
+def _linear(state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {
+        "kernel": np.ascontiguousarray(state[f"{prefix}.weight"].T),
+        "bias": state[f"{prefix}.bias"],
+    }
+
+
+def _layer_norm(state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": state[f"{prefix}.weight"], "bias": state[f"{prefix}.bias"]}
+
+
+def _convert_transformer_acoustic_state(state: Dict[str, np.ndarray], config) -> Dict:
+    raise NotImplementedError(
+        "Reference checkpoints of the transformer acoustic model need models/transformer.py,"
+        " which is not ported (ROADMAP Queue 1, item 1.6)"
+    )
+
+
+def convert_reference_model_state(
+    state: Dict[str, np.ndarray],
+    plan: ProjectionPlan,
+    wav2vec2_architecture: Optional[Wav2Vec2Architecture],
+    acoustic_config=None,
+) -> Dict:
+    """Maps the reference's ``Allophant.state_dict()`` names onto the JAX
+    package's parameter tree: ``_acoustic_model._model.<hf>`` for the wrapped
+    wav2vec2, ``_projection._layers.<node>._time_distributed_layer`` for the
+    classifiers, ``..._composition_layer._attribute_embeddings.weight`` and
+    ``..._allophone_layer._allophone_matrices``."""
+    params: Dict[str, Any] = {}
+    if wav2vec2_architecture is not None:
+        params["acoustic_model"] = convert_wav2vec2_state(state, wav2vec2_architecture, prefix="_acoustic_model._model.")
+    elif isinstance(acoustic_config, TransformerAcousticModelConfig):
+        params["acoustic_model"] = _convert_transformer_acoustic_state(state, acoustic_config)
+    else:
+        raise NotImplementedError(
+            f"Reference checkpoints with this acoustic model type are not supported (got {type(acoustic_config).__name__})"
+        )
+
+    projection: Dict[str, Any] = {}
+    for node in plan.nodes:
+        base = f"_projection._layers.{node.name}._time_distributed_layer"
+        if node.attention is not None:
+            # torch nn.MultiheadAttention packs q/k/v into in_proj_weight [3E, E].
+            in_proj_weight = state[f"{base}.attention.in_proj_weight"]
+            in_proj_bias = state[f"{base}.attention.in_proj_bias"]
+            hidden = in_proj_weight.shape[0] // 3
+            attention = {
+                name: {
+                    "kernel": np.ascontiguousarray(in_proj_weight[index * hidden : (index + 1) * hidden].T),
+                    "bias": in_proj_bias[index * hidden : (index + 1) * hidden],
+                }
+                for index, name in enumerate(("q_proj", "k_proj", "v_proj"))
+            }
+            attention["out_proj"] = _linear(state, f"{base}.attention.out_proj")
+            projection[f"classifiers_{node.name}"] = {
+                "input_projection": _linear(state, f"{base}.input_projection"),
+                "layer_norm": _layer_norm(state, f"{base}.layer_norm"),
+                **attention,
+            }
+        else:
+            projection[f"classifiers_{node.name}"] = _linear(state, base)
+        if node.has_composition:
+            projection["composition"] = {
+                "attribute_embeddings": state[
+                    f"_projection._layers.{node.name}._composition_layer._attribute_embeddings.weight"
+                ]
+            }
+        if node.has_allophone:
+            projection["allophone"] = {
+                "allophone_matrices": state[f"_projection._layers.{node.name}._allophone_layer._allophone_matrices"]
+            }
+    params["projection"] = projection
+    return params
 
 
 def variables_from_model(model) -> Dict[str, Dict]:
     """The JAX package's variable tree of an ``AllophantModel``: its
     parameters as float32 ``params`` (the master weights) and the plan's
-    static tables as ``buffers``."""
+    static tables as ``buffers`` (an empty ``projection`` entry when the plan
+    has none, as flax's tree has)."""
     from allophant_tpu_torch.weights import jax_params_from_state
 
     state = {name: parameter.detach().float() for name, parameter in model.named_parameters()}
@@ -135,4 +311,4 @@ def variables_from_model(model) -> Dict[str, Dict]:
             "initialization": projection.allophone.initialization.cpu().numpy().astype(np.float32),
             "gather_indices": projection.allophone.gather_indices.cpu().numpy().astype(np.int32),
         }
-    return {"params": params, "buffers": {"projection": buffers}} if buffers else {"params": params}
+    return {"params": params, "buffers": {"projection": buffers}}

@@ -2,7 +2,8 @@
 ``predict``, the fused greedy serving step ``predict_decoded``, the fused beam
 serving step ``predict_beam_decoded``, ``map_allophones`` and
 ``downsampled_lengths``; and for a model built from a configuration
-(``from_config``), ``train`` and ``save``.
+(``from_config``) or restored from a checkpoint (``restore``), ``train`` and
+``save``.
 
 PyTorch runs eagerly, so there is no per-bucket compile cache; the audio is
 still bucketed exactly as the JAX estimator buckets it, because the width of
@@ -15,14 +16,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from allophant_tpu_torch.config import Config
+from allophant_tpu_torch.config import Config, Wav2Vec2PretrainedConfig
 from allophant_tpu_torch.data.batch import Batch
-from allophant_tpu_torch.device import resolve_device, set_float32_precision
+from allophant_tpu_torch.device import resolve_device, set_float32_precision, to_device
 from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
+from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer, PhoneticIndexerState
+from allophant_tpu_torch.training import checkpoint as checkpoint_module
 from allophant_tpu_torch.training.checkpoint import Checkpoint, EpochPosition, save_native, variables_from_model
 
 #: Serving precision presets: name -> (dtype, head_dtype, f32_matmul_precision).
@@ -62,6 +65,114 @@ def _bucket_length(length: int, minimum: int = 1024) -> int:
         return 1 << (length - 1).bit_length()
     step = 32_768
     return ((length + step - 1) // step) * step
+
+
+def _pack_audio_for_upload(audio: np.ndarray) -> np.ndarray:
+    """The audio as int16 when that is lossless, else unchanged.
+
+    16-bit sources reach the model as float32 ``i / 32768``
+    (``data/audio.py``), so they are sent as the int16 ``i`` and scaled back on
+    the device: exact, since int16 -> float32 is exact and 2^-15 is a power of
+    two. Half the bytes cross to the device. Anything else (resampled audio,
+    float WAV sources) is sent unchanged."""
+    if audio.ndim != 2 or audio.dtype != np.float32:
+        return audio
+    scaled = audio * 32768.0
+    packed = scaled.astype(np.int16)
+    if np.array_equal(scaled, packed):
+        return packed
+    return audio
+
+
+def _unpack_audio_on_device(audio: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``_pack_audio_for_upload``, on the device."""
+    if audio.dtype == torch.int16:
+        return audio.to(torch.float32) * (1.0 / 32768.0)
+    return audio
+
+
+def infer_wav2vec2_architecture(model_state: Dict[str, np.ndarray]) -> Wav2Vec2Architecture:
+    """The encoder architecture of a reference checkpoint's state dict (hidden
+    size, depth, conv stack, norm mode, positional conv): the checkpoints store
+    only the hub model id."""
+    prefix = "_acoustic_model._model."
+    layer_ids = set()
+    conv_ids = set()
+    for key in model_state:
+        if key.startswith(prefix + "encoder.layers."):
+            layer_ids.add(int(key[len(prefix + "encoder.layers.") :].split(".")[0]))
+        if key.startswith(prefix + "feature_extractor.conv_layers."):
+            conv_ids.add(int(key[len(prefix + "feature_extractor.conv_layers.") :].split(".")[0]))
+
+    num_layers = max(layer_ids) + 1
+    num_convs = max(conv_ids) + 1
+    hidden_size = model_state[prefix + "encoder.layers.0.attention.q_proj.weight"].shape[0]
+    intermediate = model_state[prefix + "encoder.layers.0.feed_forward.intermediate_dense.weight"].shape[0]
+    conv_dim = tuple(
+        model_state[prefix + f"feature_extractor.conv_layers.{i}.conv.weight"].shape[0] for i in range(num_convs)
+    )
+    conv_kernel = tuple(
+        model_state[prefix + f"feature_extractor.conv_layers.{i}.conv.weight"].shape[2] for i in range(num_convs)
+    )
+    layer_norm_mode = "layer" if prefix + "feature_extractor.conv_layers.1.layer_norm.weight" in model_state else "group"
+    # Pre-norm ("stable") and post-norm encoders have the same parameter names
+    # in HF wav2vec2; every released wav2vec2-family config couples them to
+    # the extractor's norm: group norm <=> post-norm, layer norm <=> pre-norm.
+    stable = layer_norm_mode == "layer"
+    defaults = Wav2Vec2Architecture()
+    # The positional conv's width and group count come from its (weight-normed)
+    # torch Conv1d weight [out, in/groups, kernel_size].
+    pos_prefix = prefix + "encoder.pos_conv_embed.conv"
+    pos_weight = None
+    for suffix in (".parametrizations.weight.original1", ".weight_v", ".weight"):
+        if pos_prefix + suffix in model_state:
+            pos_weight = model_state[pos_prefix + suffix]
+            break
+    if pos_weight is not None:
+        num_pos = int(pos_weight.shape[2])
+        pos_groups = max(1, int(hidden_size) // int(pos_weight.shape[1]))
+    else:
+        num_pos = defaults.num_conv_pos_embeddings
+        pos_groups = defaults.num_conv_pos_embedding_groups
+    return Wav2Vec2Architecture(
+        hidden_size=int(hidden_size),
+        num_hidden_layers=int(num_layers),
+        num_attention_heads=max(1, int(hidden_size) // 64),
+        intermediate_size=int(intermediate),
+        conv_dim=conv_dim,
+        conv_kernel=conv_kernel,
+        conv_stride=defaults.conv_stride[:num_convs],
+        conv_bias=prefix + "feature_extractor.conv_layers.0.conv.bias" in model_state,
+        feat_extract_norm=layer_norm_mode,
+        do_stable_layer_norm=stable,
+        num_conv_pos_embeddings=num_pos,
+        num_conv_pos_embedding_groups=pos_groups,
+    )
+
+
+def _flat_shapes(tree, prefix: str = "") -> Dict[str, Tuple[int, ...]]:
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            shapes.update(_flat_shapes(value, path))
+        else:
+            shapes[path] = tuple(np.shape(value))
+    return shapes
+
+
+def _check_tree_shapes(expected: Dict, actual: Dict) -> None:
+    """Raises unless ``actual`` has exactly ``expected``'s leaves, each of the
+    same shape."""
+    expected_flat = _flat_shapes(expected)
+    actual_flat = _flat_shapes(actual)
+    missing = set(expected_flat) - set(actual_flat)
+    extra = set(actual_flat) - set(expected_flat)
+    if missing or extra:
+        raise ValueError(f"Checkpoint parameter mismatch. Missing: {sorted(missing)[:8]}; extra: {sorted(extra)[:8]}")
+    for key, shape in expected_flat.items():
+        if actual_flat[key] != shape:
+            raise ValueError(f"Shape mismatch for {key}: checkpoint {actual_flat[key]} vs model {shape}")
 
 
 class Estimator:
@@ -139,6 +250,78 @@ class Estimator:
             config=config, feature_size=feature_size, sample_rate=sample_rate, attribute_graph=attribute_graph,
         )
 
+    @classmethod
+    def restore(
+        cls,
+        checkpoint: Checkpoint | str,
+        dtype=None,
+        wav2vec2_architecture: Optional[Wav2Vec2Architecture] = None,
+        precision: Optional[str] = None,
+        device=None,
+    ) -> Tuple["Estimator", PhoneticAttributeIndexer]:
+        """Restores from a native or reference checkpoint (a path, a hub model
+        id in the local cache, or a parsed ``Checkpoint``) onto ``device``
+        (CUDA unless the caller asks for another; raises without one); returns
+        the estimator, with float32 master parameters, and the indexer rebuilt
+        from the checkpoint's state.
+
+        ``precision`` names a preset (default ``DEFAULT_SERVING_PRECISION``).
+        ``dtype`` selects the single-dtype preset of that dtype ("float32" or
+        "bfloat16") when no ``precision`` is given. A string second argument
+        is a torch device name of the reference's API: it is not a dtype, and
+        is ignored (pass ``device``). Without ``wav2vec2_architecture`` the
+        encoder is XLS-R 300M, or for a reference checkpoint the architecture
+        its tensors show. Every leaf of the checkpoint is shape-checked
+        against the model before any is loaded."""
+        from allophant_tpu_torch.weights import load_jax_variables
+
+        if isinstance(dtype, str):
+            dtype = None
+        if precision is None:
+            precision = DEFAULT_SERVING_PRECISION if dtype is None else {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+        if not isinstance(checkpoint, Checkpoint):
+            checkpoint = checkpoint_module.load_checkpoint(checkpoint)
+
+        indexer = PhoneticAttributeIndexer.from_config(checkpoint.config, state_dict=checkpoint.phonetic_indexer_state)
+        if (
+            wav2vec2_architecture is None
+            and isinstance(checkpoint.config.nn.acoustic_model, Wav2Vec2PretrainedConfig)
+            and checkpoint.reference_model_state is not None
+        ):
+            wav2vec2_architecture = infer_wav2vec2_architecture(checkpoint.reference_model_state)
+
+        estimator = cls.from_config(
+            checkpoint.config,
+            checkpoint.feature_size,
+            checkpoint.sample_rate,
+            checkpoint.attribute_graph,
+            indexer,
+            wav2vec2_architecture,
+            precision=precision,
+            device=device,
+        )
+        model = estimator.model
+        expected = variables_from_model(model)
+        if checkpoint.variables is not None:
+            variables = checkpoint.variables
+        elif checkpoint.reference_model_state is not None:
+            params = checkpoint_module.convert_reference_model_state(
+                checkpoint.reference_model_state,
+                model.plan,
+                wav2vec2_architecture,
+                acoustic_config=checkpoint.config.nn.acoustic_model,
+            )
+            variables = {**expected, "params": params}
+        else:
+            raise ValueError("The checkpoint holds no model weights")
+        _check_tree_shapes(expected, variables)
+        load_jax_variables(model, variables)
+
+        estimator.epoch = checkpoint.epoch
+        estimator.history = checkpoint.history
+        estimator.training_state = checkpoint.optimizer_state
+        return estimator, indexer
+
     def train(self, dataset_manager, tensorboard_dir: Optional[str] = None, skip_batches: int = 0, show_progress: bool = False):
         """A ``TrainingRun``: an iterable yielding ``(TrainingStatus,
         EpochStatistics)`` at every validation point, updating the model in
@@ -182,19 +365,20 @@ class Estimator:
 
     def _inputs(self, batch: Batch, target_feature_indices):
         """Bucket-pads the audio (as ``_padded`` in the JAX estimator) and moves
-        the batch to the device."""
+        the batch to the device without waiting for the device: 16-bit audio
+        as int16 (``_pack_audio_for_upload``)."""
         audio = np.asarray(batch.audio_features, dtype=np.float32)
         target = _bucket_length(audio.shape[1])
         if audio.shape[1] < target:
             audio = np.pad(audio, [(0, 0), (0, target - audio.shape[1])])
         device = self.device
         inputs = (
-            torch.from_numpy(audio).to(device),
-            torch.from_numpy(np.asarray(batch.lengths, dtype=np.int64)).to(device),
-            torch.from_numpy(np.asarray(batch.language_ids, dtype=np.int64)).to(device),
+            _unpack_audio_on_device(to_device(_pack_audio_for_upload(audio), device)),
+            to_device(np.asarray(batch.lengths, dtype=np.int64), device),
+            to_device(np.asarray(batch.language_ids, dtype=np.int64), device),
         )
         if target_feature_indices is not None:
-            target_feature_indices = torch.as_tensor(np.asarray(target_feature_indices), dtype=torch.long, device=device)
+            target_feature_indices = to_device(np.asarray(target_feature_indices, dtype=np.int64), device)
         return inputs, target_feature_indices
 
     def _forward(self, batch: Batch, target_feature_indices) -> Tuple[Predictions, torch.Tensor]:

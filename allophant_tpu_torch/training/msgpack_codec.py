@@ -19,8 +19,10 @@ import numpy as np
 NDARRAY_EXT = 1
 NPSCALAR_EXT = 3
 #: flax splits arrays larger than this into chunks (``MAX_CHUNK_SIZE``); this
-#: codec does not, and refuses them.
+#: codec does not write them, and refuses such arrays; ``unchunk`` rebuilds the
+#: chunked records of a file flax wrote.
 MAX_ARRAY_BYTES = 2**30
+CHUNKED_ARRAY_KEY = "__msgpack_chunked_array__"
 
 
 def _pack_length(out: List[bytes], length: int, fixed: Tuple[int, int], markers: Tuple[int, int, int]) -> None:
@@ -201,3 +203,16 @@ def unpackb(data: bytes) -> Any:
     if reader.offset != len(reader.data):
         raise ValueError("Extra bytes after the msgpack value")
     return value
+
+
+def unchunk(tree: Any) -> Any:
+    """``tree`` with every chunked-array record of flax's
+    ``msgpack_serialize`` (``{"__msgpack_chunked_array__": True, "shape":
+    {"0": ...}, "chunks": {"0": flat, ...}}``) rebuilt into its array."""
+    if not isinstance(tree, dict):
+        return tree
+    if CHUNKED_ARRAY_KEY in tree:
+        shape = tuple(int(tree["shape"][str(index)]) for index in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(index)] for index in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {key: unchunk(value) for key, value in tree.items()}

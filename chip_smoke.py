@@ -69,20 +69,36 @@ Phases, each printing its own lines; any failure exits non-zero:
      checkpoint decoded and held to the master parameters bit for bit; the
      loop's time a step, its host share, validation time and peak memory;
  11. train loop float32: 2 steps of a 2-layer full-width flagship through the
-     loop on the card and on the CPU, losses compared.
+     loop on the card and on the CPU, losses compared;
+ 12. predict: Estimator.restore of the loop phase's checkpoint on the card,
+     held bit for bit to the saved f32 master parameters, then the port's CLI
+     in this process on a synthetic UCLA corpus (4 languages x 16 WAVs of
+     2-10 s): predict greedily with --language-phonemes and at -b 4 -n 2,
+     twins forbidden and launches counted, every utterance a line and every
+     head a candidate; evaluate -j of each file with the device scorer on the
+     card and with --host-scorer, reports equal; the restore and evaluate
+     seconds and the CLI's steady audio-s/s beside predict_decoded /
+     predict_beam_decoded alone on the same batches;
+ 13. predict float32: a 2-layer full-width checkpoint through predict on the
+     card and with --cpu, greedy and at -b 4 -n 2, JSONL lines equal.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1341,12 +1357,14 @@ class TwinsForbidden:
     run shows that no twin ran on the card."""
 
     def __enter__(self):
+        import allophant_tpu_torch.ops.decode as decode
         import allophant_tpu_torch.ops.frame_encoder as frame_encoder
         import allophant_tpu_torch.ops.oneshot_attention as attention
 
         names = ("reference_oneshot", "reference_oneshot_dropout", "reference_oneshot_backward", "reference_dropout_mask_bits")
         self.saved = [(attention, name, getattr(attention, name)) for name in names]
         self.saved.append((frame_encoder, "reference_frame_conv", frame_encoder.reference_frame_conv))
+        self.saved += [(decode, name, getattr(decode, name)) for name in ("beam_search_padded", "backtrace_beams_device")]
         for module, name, _ in self.saved:
             setattr(module, name, self.forbidden(name))
         return self
@@ -1577,6 +1595,18 @@ def write_ucla_corpus(root: Path, inventories: dict, utterances: int, seconds: t
     return root
 
 
+def loop_inventories(indexer) -> dict:
+    """UCLA code -> phoneme list of each of LOOP_LANGUAGES, in the corpus's
+    language order: the table's phonemes at the places of the language's own
+    inventory's classes (a UCLA dataset labels a phoneme by its place in the
+    whole table)."""
+    table_order = indexer.full_subset_attributes.phonemes
+    return {
+        code: [table_order[indexer.phoneme_index(phoneme)] for phoneme in indexer.phoneme_inventory(LOOP_LANGUAGES[code])]
+        for code in sorted(LOOP_LANGUAGES)
+    }
+
+
 def loop_setup(root: Path, config_dict: dict, utterances, dev_utterances, seconds, seed):
     """(config, indexer, manager) of a training run over a synthetic UCLA
     corpus of LOOP_LANGUAGES written under ``root``. The indexer takes the
@@ -1593,13 +1623,8 @@ def loop_setup(root: Path, config_dict: dict, utterances, dev_utterances, second
     from allophant_tpu_torch.training.run import DatasetManager
 
     config = Config.load(config_dict)
-    codes = sorted(LOOP_LANGUAGES)
-    indexer = demo_indexer(config, languages=[LOOP_LANGUAGES[code] for code in codes])
-    table_order = indexer.full_subset_attributes.phonemes
-    inventories = {
-        code: [table_order[indexer.phoneme_index(phoneme)] for phoneme in indexer.phoneme_inventory(LOOP_LANGUAGES[code])]
-        for code in codes
-    }
+    indexer = demo_indexer(config, languages=[LOOP_LANGUAGES[code] for code in sorted(LOOP_LANGUAGES)])
+    inventories = loop_inventories(indexer)
     train = UCLAPhoneticCorpus.load(str(write_ucla_corpus(root / "train", inventories, utterances, seconds, seed)), resample=SAMPLE_RATE)
     splits = MultilingualSplits.single(train, "train")
     if dev_utterances:
@@ -1609,12 +1634,21 @@ def loop_setup(root: Path, config_dict: dict, utterances, dev_utterances, second
     return config, indexer, DatasetManager.from_config(config, splits, indexer)
 
 
+def tree_leaves(tree: dict, prefix=()):
+    """(path, leaf) of every leaf of a nested dict."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from tree_leaves(value, (*prefix, key))
+        else:
+            yield (*prefix, key), value
+
+
 def parameter_groups(model) -> dict:
     groups = ("acoustic_model.feature_extractor", "acoustic_model.feature_projection", "acoustic_model.encoder", "projection")
     return {group: [name for name, _ in model.named_parameters() if name.startswith(group)] for group in groups}
 
 
-def phase_train_loop(results: dict, step_phase_seconds: float) -> None:
+def phase_train_loop(results: dict, step_phase_seconds: float, root: Path) -> dict:
     """The training loop from user inputs: the demo config (batch capped so a
     microbatch holds at most TRAIN_BATCH x TRAIN_SECONDS, accumulation
     TRAIN_ACCUMULATION, validation every LOOP_STEPS steps) through the port's
@@ -1627,142 +1661,133 @@ def phase_train_loop(results: dict, step_phase_seconds: float) -> None:
     validation batch, K1 24 a validation batch), finite losses, a
     bit-unchanged frozen extractor, moved trainable groups, and the
     checkpoint decoded by the port's codec against the f32 master
-    parameters bit for bit."""
-    import tempfile
-
+    parameters bit for bit. The corpus and the checkpoint stay in ``root``
+    (``train/``, ``dev/``, ``flagship.ckpt``); returns the saved f32 master
+    parameters as the JAX package's ``params`` tree."""
     from allophant_tpu_torch.demo import demo_config_dict
-    from allophant_tpu_torch.training.checkpoint import read_native
+    from allophant_tpu_torch.training.checkpoint import load_native
     from allophant_tpu_torch.training.estimator import Estimator
     from allophant_tpu_torch.training.run import TrainingStatus
     from allophant_tpu_torch.weights import jax_params_from_state
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as directory:
-        root = Path(directory)
-        start = time.perf_counter()
-        config_dict = demo_config_dict()
-        config_dict["nn"].update(
-            batch_size=TRAIN_ACCUMULATION * TRAIN_BATCH * TRAIN_SECONDS * SAMPLE_RATE,
-            accumulation_factor=TRAIN_ACCUMULATION,
-            step_size=LOOP_STEPS,
-        )
-        config, indexer, manager = loop_setup(root, config_dict, LOOP_TRAIN_UTTERANCES, LOOP_DEV_UTTERANCES, (2, 10), seed=5)
-        estimator = Estimator.from_config(config, manager.feature_size, SAMPLE_RATE, manager.attribute_graph(), indexer, device="cuda")
-        model = estimator.model
-        layers = model.architecture.num_hidden_layers
-        validation_batches = sum(1 for _ in manager.validation_batches())
-        before = {name: parameter.detach().clone() for name, parameter in model.named_parameters()}
-        torch.cuda.synchronize()
-        print(
-            f"train loop: setup {time.perf_counter() - start:.2f} s (corpus of {len(manager.splits.train)} + {len(manager.splits.dev)}"
-            f" WAVs written and read, indexer, {layers}-layer flagship from the config, {estimator.precision});"
-            f" {validation_batches} validation batches",
-            flush=True,
-        )
+    start = time.perf_counter()
+    config_dict = demo_config_dict()
+    config_dict["nn"].update(
+        batch_size=TRAIN_ACCUMULATION * TRAIN_BATCH * TRAIN_SECONDS * SAMPLE_RATE,
+        accumulation_factor=TRAIN_ACCUMULATION,
+        step_size=LOOP_STEPS,
+    )
+    config, indexer, manager = loop_setup(root, config_dict, LOOP_TRAIN_UTTERANCES, LOOP_DEV_UTTERANCES, (2, 10), seed=5)
+    estimator = Estimator.from_config(config, manager.feature_size, SAMPLE_RATE, manager.attribute_graph(), indexer, device="cuda")
+    model = estimator.model
+    layers = model.architecture.num_hidden_layers
+    validation_batches = sum(1 for _ in manager.validation_batches())
+    before = {name: parameter.detach().clone() for name, parameter in model.named_parameters()}
+    torch.cuda.synchronize()
+    print(
+        f"train loop: setup {time.perf_counter() - start:.2f} s (corpus of {len(manager.splits.train)} + {len(manager.splits.dev)}"
+        f" WAVs written and read, indexer, {layers}-layer flagship from the config, {estimator.precision});"
+        f" {validation_batches} validation batches",
+        flush=True,
+    )
 
-        run = estimator.train(manager)
-        step_spans, validation_spans = [], []
+    run = estimator.train(manager)
+    step_spans, validation_spans = [], []
 
-        def timed(function, spans):
-            def call(*args, **kwargs):
-                torch.cuda.synchronize()
-                begin = time.perf_counter()
-                value = function(*args, **kwargs)
-                torch.cuda.synchronize()
-                spans.append((begin, time.perf_counter()))
-                return value
+    def timed(function, spans):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            begin = time.perf_counter()
+            value = function(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.append((begin, time.perf_counter()))
+            return value
 
-            return call
+        return call
 
-        run._train_step = timed(run._train_step, step_spans)
-        run._validate = timed(run._validate, validation_spans)
-        counters = kernel_counters()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        for counter in counters.values():
-            counter.launches = 0
-        loop_start = time.perf_counter()
-        statistics = []
-        iterator = iter(run)
-        with TwinsForbidden():
-            for status, stats in iterator:
-                statistics.append((status, stats))
-                if status in (TrainingStatus.STEP, TrainingStatus.IMPROVED):
-                    break
-            iterator.close()
-        torch.cuda.synchronize()
-        loop_seconds = time.perf_counter() - loop_start
-        launches = {name: counter.launches for name, counter in counters.items()}
-        for name, count in launches.items():
-            results[name] += count
-        peak = torch.cuda.max_memory_allocated()
-        check(len(step_spans) == LOOP_STEPS and len(validation_spans) == 1, f"loop ran {len(step_spans)} steps, {len(validation_spans)} validations")
-        expected = {
-            "oneshot_attention": layers * validation_batches,
-            "attention_dropout": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
-            "attention_backward": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
-            "dropout_mask": 0,
-            "frame_encoder": TRAIN_ACCUMULATION * LOOP_STEPS + validation_batches,
-        }
-        check(launches == expected, f"train loop: launches {launches}, expected {expected}")
-        (status, stats), = statistics
-        check(np.isfinite(stats.train_loss) and np.isfinite(stats.validation_loss), f"train loop: non-finite losses {stats}")
-        check(all(np.isfinite(value) for value in stats.classifier_losses.values()), "train loop: a head's loss is not finite")
-        groups = parameter_groups(model)
-        parameters = dict(model.named_parameters())
-        moved = {group: sum(not torch.equal(before[name], parameters[name]) for name in names) for group, names in groups.items()}
-        print(f"train loop: {status.value} at step {stats.global_step}: train loss {stats.train_loss:.6f}, validation loss"
-              f" {stats.validation_loss:.6f}, grad_norm {stats.gradient_norm:.6f}, lr {stats.learning_rate:.3e};"
-              f" parameters moved per group {moved} of { {group: len(names) for group, names in groups.items()} }; launches {launches}",
-              flush=True)
-        frozen, *trainable = groups
-        check(moved[frozen] == 0, "train loop: the frozen feature extractor moved")
-        check(all(moved[group] > 0 for group in trainable), "train loop: a trainable group did not move")
+    run._train_step = timed(run._train_step, step_spans)
+    run._validate = timed(run._validate, validation_spans)
+    counters = kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    loop_start = time.perf_counter()
+    statistics = []
+    iterator = iter(run)
+    with TwinsForbidden():
+        for status, stats in iterator:
+            statistics.append((status, stats))
+            if status in (TrainingStatus.STEP, TrainingStatus.IMPROVED):
+                break
+        iterator.close()
+    torch.cuda.synchronize()
+    loop_seconds = time.perf_counter() - loop_start
+    launches = {name: counter.launches for name, counter in counters.items()}
+    for name, count in launches.items():
+        results[name] += count
+    peak = torch.cuda.max_memory_allocated()
+    check(len(step_spans) == LOOP_STEPS and len(validation_spans) == 1, f"loop ran {len(step_spans)} steps, {len(validation_spans)} validations")
+    expected = {
+        "oneshot_attention": layers * validation_batches,
+        "attention_dropout": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
+        "attention_backward": TRAIN_ACCUMULATION * layers * LOOP_STEPS,
+        "dropout_mask": 0,
+        "frame_encoder": TRAIN_ACCUMULATION * LOOP_STEPS + validation_batches,
+    }
+    check(launches == expected, f"train loop: launches {launches}, expected {expected}")
+    (status, stats), = statistics
+    check(np.isfinite(stats.train_loss) and np.isfinite(stats.validation_loss), f"train loop: non-finite losses {stats}")
+    check(all(np.isfinite(value) for value in stats.classifier_losses.values()), "train loop: a head's loss is not finite")
+    groups = parameter_groups(model)
+    parameters = dict(model.named_parameters())
+    moved = {group: sum(not torch.equal(before[name], parameters[name]) for name in names) for group, names in groups.items()}
+    print(f"train loop: {status.value} at step {stats.global_step}: train loss {stats.train_loss:.6f}, validation loss"
+          f" {stats.validation_loss:.6f}, grad_norm {stats.gradient_norm:.6f}, lr {stats.learning_rate:.3e};"
+          f" parameters moved per group {moved} of { {group: len(names) for group, names in groups.items()} }; launches {launches}",
+          flush=True)
+    frozen, *trainable = groups
+    check(moved[frozen] == 0, "train loop: the frozen feature extractor moved")
+    check(all(moved[group] > 0 for group in trainable), "train loop: a trainable group did not move")
 
-        step_seconds = [end - begin for begin, end in step_spans]
-        first_start, last_end = step_spans[0][0], step_spans[-1][1]
-        between = sum(end - begin for begin, end in validation_spans if first_start <= begin <= last_end)
-        steps_wall = last_end - first_start - between
-        host = steps_wall - sum(step_seconds)
-        print(
-            f"train loop time: {loop_seconds:.3f} s for {LOOP_STEPS} steps and one validation; from the first step's start"
-            f" to the last step's end {steps_wall / LOOP_STEPS * 1e3:.1f} ms a step, of which the step itself"
-            f" {np.mean(step_seconds) * 1e3:.1f} ms (steps 2-{LOOP_STEPS}: {np.mean(step_seconds[1:]) * 1e3:.1f} ms) and"
-            f" the host's batching, stacking and copy between steps {host / (LOOP_STEPS - 1) * 1e3:.1f} ms"
-            f" ({host / steps_wall:.3f} of that wall time), beside {step_phase_seconds * 1e3:.1f} ms a step of the step"
-            f" phase (8 x 10 s microbatches); validation {validation_spans[0][1] - validation_spans[0][0]:.3f} s"
-            f" ({validation_batches} batches); peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)",
-            flush=True,
-        )
+    step_seconds = [end - begin for begin, end in step_spans]
+    first_start, last_end = step_spans[0][0], step_spans[-1][1]
+    between = sum(end - begin for begin, end in validation_spans if first_start <= begin <= last_end)
+    steps_wall = last_end - first_start - between
+    host = steps_wall - sum(step_seconds)
+    print(
+        f"train loop time: {loop_seconds:.3f} s for {LOOP_STEPS} steps and one validation; from the first step's start"
+        f" to the last step's end {steps_wall / LOOP_STEPS * 1e3:.1f} ms a step, of which the step itself"
+        f" {np.mean(step_seconds) * 1e3:.1f} ms (steps 2-{LOOP_STEPS}: {np.mean(step_seconds[1:]) * 1e3:.1f} ms) and"
+        f" the host's batching, stacking and copy between steps {host / (LOOP_STEPS - 1) * 1e3:.1f} ms"
+        f" ({host / steps_wall:.3f} of that wall time), beside {step_phase_seconds * 1e3:.1f} ms a step of the step"
+        f" phase (8 x 10 s microbatches); validation {validation_spans[0][1] - validation_spans[0][0]:.3f} s"
+        f" ({validation_batches} batches); peak memory {peak / 2**30:.2f} GiB (max_memory_allocated)",
+        flush=True,
+    )
 
-        save_start = time.perf_counter()
-        path = root / "flagship.ckpt"
-        estimator.save(str(path), phonetic_indexer_state=indexer.state())
-        save_seconds = time.perf_counter() - save_start
-        contents = read_native(str(path))
-        expected_params = jax_params_from_state(dict(model.named_parameters()), model.architecture)
-
-        def leaves(tree, prefix=()):
-            for key, value in tree.items():
-                if isinstance(value, dict):
-                    yield from leaves(value, (*prefix, key))
-                else:
-                    yield (*prefix, key), value
-
-        saved = dict(leaves(contents["variables"]["params"]))
-        wanted = dict(leaves(expected_params))
-        check(saved.keys() == wanted.keys(), "checkpoint: parameter tree differs")
-        differing = [key for key, value in wanted.items() if value.dtype != np.float32 or not np.array_equal(saved[key], value)]
-        check(not differing, f"checkpoint: {len(differing)} leaves differ from the master parameters, e.g. {differing[:3]}")
-        metadata = contents["metadata"]
-        check(
-            metadata["epoch"] == estimator.epoch.to_dict() and metadata["config"] == json.loads(json.dumps(config.dump())),
-            "checkpoint: metadata differs",
-        )
-        print(
-            f"train loop save: {path.stat().st_size / 2**20:.1f} MiB in {save_seconds:.2f} s; decoded by the port's codec,"
-            f" {len(saved)} parameter leaves bit-equal to the f32 master parameters",
-            flush=True,
-        )
+    save_start = time.perf_counter()
+    path = root / "flagship.ckpt"
+    estimator.save(str(path), phonetic_indexer_state=indexer.state())
+    save_seconds = time.perf_counter() - save_start
+    contents = load_native(str(path))
+    expected_params = jax_params_from_state(dict(model.named_parameters()), model.architecture)
+    saved = dict(tree_leaves(contents.variables["params"]))
+    wanted = dict(tree_leaves(expected_params))
+    check(saved.keys() == wanted.keys(), "checkpoint: parameter tree differs")
+    differing = [key for key, value in wanted.items() if value.dtype != np.float32 or not np.array_equal(saved[key], value)]
+    check(not differing, f"checkpoint: {len(differing)} leaves differ from the master parameters, e.g. {differing[:3]}")
+    check(
+        contents.epoch.to_dict() == estimator.epoch.to_dict()
+        and json.loads(json.dumps(contents.config.dump())) == json.loads(json.dumps(config.dump())),
+        "checkpoint: metadata differs",
+    )
+    print(
+        f"train loop save: {path.stat().st_size / 2**20:.1f} MiB in {save_seconds:.2f} s; decoded by the port's codec,"
+        f" {len(saved)} parameter leaves bit-equal to the f32 master parameters",
+        flush=True,
+    )
+    return expected_params
 
 
 def phase_train_loop_float32() -> None:
@@ -1772,8 +1797,6 @@ def phase_train_loop_float32() -> None:
     step phase's limit (1e-4 relative). SGD because Adam's first update is
     lr * sign(g) for a leaf whose exact gradient is 0, where each device's f32
     rounding picks the sign."""
-    import tempfile
-
     from allophant_tpu_torch.demo import demo_config_dict
     from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
     from allophant_tpu_torch.training.estimator import Estimator
@@ -1811,6 +1834,253 @@ def phase_train_loop_float32() -> None:
         flush=True,
     )
     check(relative <= 1e-4, "float32 loop: card and CPU losses disagree")
+
+
+PREDICT_UTTERANCES, PREDICT_BATCH, PREDICT_BEAMS, PREDICT_CANDIDATES = 16, 8, 4, 2
+PREDICT_TIMING = re.compile(r"\[predict-timing\] batch ([0-9.]+) audio-s in ([0-9.]+)s")
+
+
+def run_cli(arguments: list, counters: dict):
+    """(launches of each counted kernel, the CLI's per-batch (audio seconds,
+    wall seconds) timing lines, wall seconds) of one in-process call of the
+    port's CLI with the plain twins forbidden."""
+    from allophant_tpu_torch.cli.run import main as cli_main
+
+    stderr = io.StringIO()
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    start = time.perf_counter()
+    with TwinsForbidden(), contextlib.redirect_stderr(stderr):
+        cli_main(arguments)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    batches = [(float(audio), float(wall)) for audio, wall in PREDICT_TIMING.findall(stderr.getvalue())]
+    return {name: counter.launches for name, counter in counters.items()}, batches, seconds
+
+
+def read_predictions(path: Path):
+    lines = path.read_text(encoding="utf-8").splitlines()
+    return json.loads(lines[0]), [json.loads(line) for line in lines[1:]]
+
+
+def device_seconds(call, batches) -> float:
+    """Wall seconds of ``call`` over ``batches`` queued back to back (after one
+    warm-up call), ending in a synchronise."""
+    call(*batches[0])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for batch in batches:
+        call(*batch)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start
+
+
+def phase_predict(results: dict, root: Path, master_params: dict) -> None:
+    """Serving from a checkpoint: ``Estimator.restore`` of the loop phase's
+    24-layer flagship on the card, held bit for bit to the saved f32 master
+    parameters; then the port's CLI in this process on a synthetic UCLA
+    corpus (4 languages x PREDICT_UTTERANCES WAVs of 2-10 s): ``predict``
+    greedily with ``--language-phonemes``, then at ``-b 4 -n 2`` (the phone
+    head recomposed over each language's inventory, batches split by
+    language), with the twins forbidden and the launches counted; every
+    utterance a line, every head a candidate; ``evaluate -j`` of each file
+    with the device scorer on the card and with ``--host-scorer``, equal
+    edit statistics. Prints the restore and evaluate seconds and the CLI's
+    steady audio-s/s beside predict_decoded / predict_beam_decoded alone on
+    the same batches."""
+    from allophant_tpu_torch.cli.run import _dataset_from_data, _filter_split_raw_batches_by_language
+    from allophant_tpu_torch.cli.run import main as cli_main
+    from allophant_tpu_torch.config import BatchingMode
+    from allophant_tpu_torch.data import corpus_loading
+    from allophant_tpu_torch.data.batching import Batcher
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.weights import jax_params_from_state
+
+    checkpoint = root / "flagship.ckpt"
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with TwinsForbidden():
+        estimator, indexer = Estimator.restore(str(checkpoint), device="cuda")
+    torch.cuda.synchronize()
+    restore_seconds = time.perf_counter() - start
+    model = estimator.model
+    layers = model.architecture.num_hidden_layers
+    restored = dict(tree_leaves(jax_params_from_state(dict(model.named_parameters()), model.architecture)))
+    wanted = dict(tree_leaves(master_params))
+    check(restored.keys() == wanted.keys(), "restore: parameter tree differs from the saved one")
+    differing = [key for key, value in wanted.items() if restored[key].dtype != value.dtype or not np.array_equal(restored[key], value)]
+    check(not differing, f"restore: {len(differing)} leaves differ from the saved master parameters, e.g. {differing[:3]}")
+    check(layers == 24 and estimator.precision == "mixed", f"restore: {layers} layers, {estimator.precision}")
+    print(
+        f"predict: Estimator.restore of the {layers}-layer flagship ({checkpoint.stat().st_size / 2**20:.1f} MiB,"
+        f" {estimator.precision}) on the card in {restore_seconds:.2f} s; {len(wanted)} parameter leaves bit-equal"
+        " to the saved f32 master parameters",
+        flush=True,
+    )
+
+    inventories = loop_inventories(indexer)
+    corpus = write_ucla_corpus(root / "predict", inventories, PREDICT_UTTERANCES, (2, 10), seed=7)
+    counters = {**kernel_counters(), "beam_search": beam_search_cuda, "beam_backtrace": backtrace_cuda}
+    widths = {node.name: node.output_size for node in model.plan.nodes}
+    # The corpus order: languages sorted, utterances in file order; the CLI
+    # splits each batch of the beam run into runs of one language.
+    corpus_languages = [code for code in sorted(inventories) for _ in range(PREDICT_UTTERANCES)]
+    runs_of_one_language = [
+        language
+        for start in range(0, len(corpus_languages), PREDICT_BATCH)
+        for index, language in enumerate(corpus_languages[start : start + PREDICT_BATCH])
+        if index == 0 or language != corpus_languages[start + index - 1]
+    ]
+    batches = (len(corpus_languages) + PREDICT_BATCH - 1) // PREDICT_BATCH
+    common = ["predict", str(corpus), str(checkpoint), "--no-progress", "-m", "utterances", "-s", str(PREDICT_BATCH)]
+    previous_timing = os.environ.get("ALLOPHANT_PREDICT_TIMING")
+    os.environ["ALLOPHANT_PREDICT_TIMING"] = "1"
+    try:
+        outputs = {}
+        for name, extra in (("greedy", ["--language-phonemes"]), ("beam", ["-b", str(PREDICT_BEAMS), "-n", str(PREDICT_CANDIDATES)])):
+            output = root / f"predict-{name}.jsonl"
+            launches, timing, seconds = run_cli([*common, *extra, "-o", str(output)], counters)
+            for kernel, count in launches.items():
+                results[kernel] += count
+            metadata, entries = read_predictions(output)
+            heads = metadata["classifiers"]
+            expected = dict.fromkeys(launches, 0)
+            if name == "greedy":
+                expected.update(oneshot_attention=layers * batches, frame_encoder=batches)
+            else:
+                searches = sum(
+                    len({widths[head] for head in heads if head != "phone"} | {len(inventories[language]) + 1})
+                    for language in runs_of_one_language
+                )
+                expected.update(
+                    oneshot_attention=layers * len(runs_of_one_language), frame_encoder=len(runs_of_one_language),
+                    beam_search=searches, beam_backtrace=searches,
+                )
+            check(launches == expected, f"predict {name}: launches {launches}, expected {expected}")
+            check(
+                sorted((entry["language"], entry["utterance_id"]) for entry in entries)
+                == sorted((code, f"{code}_{index}") for code in inventories for index in range(PREDICT_UTTERANCES)),
+                f"predict {name}: the lines do not cover the corpus once each",
+            )
+            most = PREDICT_CANDIDATES if name == "beam" else 1
+            check(
+                all(set(entry["predictions"]) == set(heads) for entry in entries)
+                and all(1 <= len(candidates) <= most for entry in entries for candidates in entry["predictions"].values()),
+                f"predict {name}: an utterance lacks a head's candidates",
+            )
+            tokens = sum(len(candidates[0]) for entry in entries for candidates in entry["predictions"].values())
+            steady_audio = sum(audio for audio, _ in timing[1:])
+            steady_wall = sum(wall for _, wall in timing[1:])
+            outputs[name] = (output, heads, steady_audio, steady_wall, len(timing))
+            print(
+                f"predict {name}: {len(entries)} utterances of {len(heads)} heads ({tokens} top-candidate tokens) in"
+                f" {seconds:.2f} s with the restore; {len(timing)} batches; steady (batches 2-{len(timing)})"
+                f" {steady_audio:.1f} audio-s in {steady_wall:.3f} s = {steady_audio / steady_wall:.1f} audio-s/s;"
+                f" launches {launches}",
+                flush=True,
+            )
+    finally:
+        if previous_timing is None:
+            del os.environ["ALLOPHANT_PREDICT_TIMING"]
+        else:
+            os.environ["ALLOPHANT_PREDICT_TIMING"] = previous_timing
+
+    # predict_decoded / predict_beam_decoded alone on the CLI's batches.
+    test_data = corpus_loading.load_corpus(str(corpus), "ucla-phonetic", SAMPLE_RATE).test
+    dataset = _dataset_from_data(test_data, estimator.config, indexer)
+    plain = list(Batcher(PREDICT_BATCH, BatchingMode.UTTERANCES, data_workers=0).batches(dataset))
+    split = list(_filter_split_raw_batches_by_language(iter(plain), test_data, set()))
+    # The feature matrices of the CLI's per-language decoders.
+    matrices = {
+        language: indexer.full_attributes.subset(test_data.inventory(language), indexer.composition_features).dense_feature_table.astype(np.int64)
+        for language in test_data.languages
+    }
+    _output, heads, steady_audio, steady_wall, count = outputs["greedy"]
+    check(count == len(plain), f"predict greedy: {count} timing lines for {len(plain)} batches")
+    greedy_heads = tuple(sorted(heads))
+    alone = device_seconds(
+        lambda batch: estimator.predict_decoded(batch, None, heads=greedy_heads, map_allophones=True), [(batch,) for batch in plain[1:]]
+    )
+    readings = {"greedy": ("predict_decoded", steady_audio, steady_wall, alone)}
+    _output, heads, steady_audio, steady_wall, count = outputs["beam"]
+    check(count == len(split), f"predict beam: {count} timing lines for {len(split)} batches")
+    beam_heads = tuple(sorted(heads))
+    alone = device_seconds(
+        lambda batch, language: estimator.predict_beam_decoded(batch, matrices[language], heads=beam_heads, beam_width=PREDICT_BEAMS),
+        [(batch, languages[0]) for batch, languages in split[1:]],
+    )
+    readings["beam"] = ("predict_beam_decoded", steady_audio, steady_wall, alone)
+    for name, (call, audio, cli_wall, alone) in readings.items():
+        print(
+            f"predict {name} readings: the CLI {audio / cli_wall:.1f} audio-s/s, {call} alone on the same batches"
+            f" {audio / alone:.1f} audio-s/s ({alone:.3f} s against the CLI's {cli_wall:.3f} s);"
+            f" host share between batches {1 - alone / cli_wall:.3f}",
+            flush=True,
+        )
+    del estimator, model
+    torch.cuda.empty_cache()
+
+    for name, (output, *_rest) in outputs.items():
+        reports, seconds = {}, {}
+        for scorer, extra in (("device", []), ("host", ["--host-scorer"])):
+            target = root / f"results-{name}-{scorer}.json"
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            cli_main(["evaluate", str(output), "-j", "--no-progress", *extra, "-o", str(target)])
+            torch.cuda.synchronize()
+            seconds[scorer] = time.perf_counter() - start
+            reports[scorer] = json.loads(target.read_text(encoding="utf-8"))["results"]
+        check(reports["device"] == reports["host"], f"evaluate {name}: the device and host scorers disagree")
+        total = reports["device"]["total"]
+        print(
+            f"evaluate {name}: device scorer (card) {seconds['device']:.3f} s, host scorer {seconds['host']:.3f} s,"
+            f" reports equal; total phone error rate {total['error_rates']['phone']:.4f}"
+            f" ({total['error_statistics']['phone']})",
+            flush=True,
+        )
+
+
+def phase_predict_float32(root: Path) -> None:
+    """``predict`` of a 2-layer full-width flagship checkpoint ("float32";
+    every class on the second layer's output, so the restored encoder is cut
+    to 2 layers) on the card and with ``--cpu``, greedy and at ``-b 4 -n 2``:
+    the JSONL utterance lines must be equal."""
+    from allophant_tpu_torch.cli.run import main as cli_main
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.demo import demo_config_dict, demo_indexer
+    from allophant_tpu_torch.models.allophant import attribute_graph_from_config
+    from allophant_tpu_torch.training.estimator import Estimator
+
+    config_dict = demo_config_dict()
+    for entry in config_dict["nn"]["projection"]["classes"]:
+        entry["dependencies"] = ["OUTPUT_1"]
+    config = Config.load(config_dict)
+    indexer = demo_indexer(config, languages=[LOOP_LANGUAGES[code] for code in sorted(LOOP_LANGUAGES)])
+    estimator = Estimator.from_config(
+        config, 1, SAMPLE_RATE, attribute_graph_from_config(config, indexer), indexer, precision="float32", device="cuda", seed=8
+    )
+    layers = estimator.model.architecture.num_hidden_layers
+    check(layers == 2, f"float32 predict: {layers} encoder layers")
+    checkpoint = root / "flagship32.ckpt"
+    estimator.save(str(checkpoint), phonetic_indexer_state=indexer.state())
+    del estimator
+    corpus = write_ucla_corpus(root / "predict32", loop_inventories(indexer), 2, (2, 4), seed=9)
+    common = ["predict", str(corpus), str(checkpoint), "--precision", "float32", "--no-progress", "-m", "utterances", "-s", "8"]
+    for name, extra in (("greedy", []), ("beam", ["-b", str(PREDICT_BEAMS), "-n", str(PREDICT_CANDIDATES)])):
+        lines = {}
+        for device, flag in (("card", []), ("cpu", ["--cpu"])):
+            output = root / f"predict32-{name}-{device}.jsonl"
+            cli_main([*common, *extra, *flag, "-o", str(output)])
+            lines[device] = output.read_text(encoding="utf-8").splitlines()
+        differing = sum(card != cpu for card, cpu in zip(lines["card"][1:], lines["cpu"][1:]))
+        print(
+            f"predict float32 card vs cpu ({name}, {layers} layers, {len(lines['card']) - 1} utterances of 2-4 s):"
+            f" {differing} utterance lines differ",
+            flush=True,
+        )
+        check(len(lines["card"]) == len(lines["cpu"]) == 9 and differing == 0, f"float32 predict {name}: card and CPU lines differ")
 
 
 def main() -> int:
@@ -1865,9 +2135,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_float32()
     torch.cuda.empty_cache()
-    phase_train_loop(launches, step_seconds)
-    torch.cuda.empty_cache()
-    phase_train_loop_float32()
+    from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
+
+    # The demo table's one-valued "tone" column is structural: each indexer
+    # the CLI rebuilds from a checkpoint would warn of it.
+    warnings.simplefilter("ignore", SingletonFeatureWarning)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as directory:
+        root = Path(directory)
+        master_params = phase_train_loop(launches, step_seconds, root)
+        torch.cuda.empty_cache()
+        phase_train_loop_float32()
+        torch.cuda.empty_cache()
+        phase_predict(launches, root, master_params)
+        del master_params
+        torch.cuda.empty_cache()
+        phase_predict_float32(root)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

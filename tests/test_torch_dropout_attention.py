@@ -170,6 +170,20 @@ def test_autograd_functions_route_the_backward_through_the_twin(rate):
         np.testing.assert_array_equal(tensor.grad.numpy(), want.numpy())
 
 
+def test_dropout_mask_bits_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """K6's wrapper resolves its device as every entry point does: CUDA by
+    default, raising without a card; the twin only for ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = dropout_mask_bits.launches
+    with pytest.raises(RuntimeError, match="No CUDA device"):
+        dropout_mask_bits(SEEDS, 2, 2, 8)
+    np.testing.assert_array_equal(
+        dropout_mask_bits(SEEDS, 2, 2, 8, device="cpu").to(torch.int64),
+        reference_dropout_mask_bits(SEEDS, 2, 2, 8).to(torch.int64),
+    )
+    assert dropout_mask_bits.launches == before
+
+
 def test_cpu_takes_the_twins_and_other_devices_raise():
     q, k, v, g, bias = (torch.from_numpy(array) for array in _inputs(batch=2, time=8))
     before = dropout_mask_bits.launches

@@ -25,7 +25,8 @@ from allophant_tpu_torch.data.speech_corpus import MultilingualSplits
 from allophant_tpu_torch.data.ucla import UCLAPhoneticCorpus
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
-from allophant_tpu_torch.training.checkpoint import read_native, variables_from_model
+from allophant_tpu_torch.training.checkpoint import load_native as port_load_native
+from allophant_tpu_torch.training.checkpoint import variables_from_model
 from allophant_tpu_torch.training.estimator import Estimator
 from allophant_tpu_torch.training.run import DatasetManager, TrainingStatus
 from allophant_tpu_torch.weights import jax_params_from_state, load_jax_variables, state_dict_from_jax
@@ -214,8 +215,8 @@ def test_checkpoint_is_read_by_jax_load_native(runs, tmp_path):
         np.testing.assert_array_equal(value, expected_leaves[path_key], err_msg=jax.tree_util.keystr(path_key))
         assert value.dtype == np.float32
     # The port's own codec reads the same file back.
-    contents = read_native(path)
-    ours = dict(jax.tree_util.tree_leaves_with_path(contents["variables"]))
+    contents = port_load_native(path)
+    ours = dict(jax.tree_util.tree_leaves_with_path(contents.variables))
     for path_key, value in jax.tree_util.tree_leaves_with_path(variables_from_model(estimator.model)):
         np.testing.assert_array_equal(ours[path_key], value)
     buffers = checkpoint.variables["buffers"]["projection"]
