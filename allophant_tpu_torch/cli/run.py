@@ -1,20 +1,24 @@
 """``allophant`` CLI of the port (counterpart of ``allophant_tpu/cli/run.py``):
-generate-config, predict, evaluate and edits, with the JAX CLI's flags.
+train, generate-config, predict, evaluate and edits, with the JAX CLI's flags.
 
+    python -m allophant_tpu_torch.cli.run train CORPUS -a table.csv -c config.toml -d -s checkpoints/
     python -m allophant_tpu_torch.cli.run predict CORPUS CHECKPOINT -o predictions.jsonl
     python -m allophant_tpu_torch.cli.run evaluate predictions.jsonl -j
 
-Inference and the device scorer run on the GPU; ``--cpu`` runs them on the
-CPU instead (the plain PyTorch path), as the JAX CLI's ``--cpu`` selects its
-CPU backend. ``train`` and ``export`` are not ported yet."""
+Training, inference and the device scorer run on the GPU; ``--cpu`` runs
+them on the CPU instead (the plain PyTorch path), as the JAX CLI's ``--cpu``
+selects its CPU backend. ``export`` is not ported yet."""
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
+import signal
 import sys
 import time
+import tomllib
 from argparse import ArgumentParser, FileType, Namespace
 from enum import Enum
 from typing import Any, Dict, List, Optional, Sequence, Set
@@ -22,6 +26,11 @@ from typing import Any, Dict, List, Optional, Sequence, Set
 import numpy as np
 
 MAIN_LOGGER = logging.getLogger("allophant_tpu_torch")
+
+BEST_CHECKPOINT = "best.ckpt"
+# Written on graceful preemption (SIGTERM/SIGINT during training): the full
+# resumable state at the interrupted step, independent of the best model.
+INTERRUPTED_CHECKPOINT = "interrupted.ckpt"
 
 
 class TrainingLanguageMode(Enum):
@@ -33,6 +42,18 @@ class TrainingLanguageMode(Enum):
 def _device(arguments: Namespace) -> Optional[str]:
     """The device of a subcommand: the CPU with ``--cpu``, else the GPU."""
     return "cpu" if getattr(arguments, "cpu", False) else None
+
+
+def _load_config_file(config_path: Optional[str], json_data: Optional[str]):
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.package_data import DEFAULT_CONFIG_PATH
+
+    if json_data is not None:
+        return Config.load(json.loads(json_data))
+    if config_path is None:
+        return Config.from_toml(DEFAULT_CONFIG_PATH)
+    with open(config_path, "rb") as file:
+        return Config.load(tomllib.load(file))
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +70,186 @@ def generate_config(arguments: Namespace) -> None:
             sys.stdout.write(file.read())
     else:
         shutil.copyfile(DEFAULT_CONFIG_PATH, arguments.config_path)
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def _checkpoint_name(epoch: int) -> str:
+    return f"epoch-{epoch}.ckpt"
+
+
+def _interrupted_checkpoint_path(save_path: str) -> str:
+    """Sibling path the preemption checkpoint is written to: `interrupted.ckpt`
+    inside a --save-all directory, `<file>.interrupted` next to a single file."""
+    if os.path.isdir(save_path):
+        return os.path.join(save_path, INTERRUPTED_CHECKPOINT)
+    return save_path + ".interrupted"
+
+
+def _prefer_interrupted_checkpoint(candidate: str, save_path: str) -> str:
+    """Resumes from the preemption checkpoint when it is the newest state.
+
+    A later regular save (new best model / epoch checkpoint) supersedes an
+    older interrupted file, so the choice is by modification time."""
+    interrupted = _interrupted_checkpoint_path(save_path)
+    if not os.path.exists(interrupted):
+        return candidate
+    if not os.path.exists(candidate):
+        return interrupted
+    return interrupted if os.path.getmtime(interrupted) >= os.path.getmtime(candidate) else candidate
+
+
+def train_network(arguments: Namespace) -> None:
+    """Runs the training loop: restore or build, iterate ``Estimator.train``,
+    checkpoint on improvement, and on SIGTERM or SIGINT stop after the
+    in-flight step and write the interrupted checkpoint."""
+    from allophant_tpu_torch.data import corpus_loading
+    from allophant_tpu_torch.device import resolve_device
+    from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
+    from allophant_tpu_torch.training import checkpoint as checkpoint_module
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.training.run import DatasetManager, TrainingStatus
+
+    # Raises now, before the corpus is read, when there is no card and no --cpu.
+    device = resolve_device(_device(arguments))
+    restore_path = arguments.save_path if arguments.restore else None
+    checkpoint = None
+    if restore_path is not None:
+        candidate = os.path.join(restore_path, BEST_CHECKPOINT) if os.path.isdir(restore_path) else restore_path
+        candidate = _prefer_interrupted_checkpoint(candidate, restore_path)
+        MAIN_LOGGER.info("Restoring from %s", candidate)
+        checkpoint = checkpoint_module.load_checkpoint(candidate)
+        if arguments.config is not None or arguments.config_json_data is not None:
+            # An explicit config on resume overrides the checkpoint's own (e.g.
+            # to extend maximum_iterations); the architecture must stay
+            # compatible with the stored parameters.
+            checkpoint.config = _load_config_file(arguments.config, arguments.config_json_data)
+        config = checkpoint.config
+    else:
+        config = _load_config_file(arguments.config, arguments.config_json_data)
+
+    corpus = corpus_loading.load_corpus(
+        arguments.dataset_path,
+        arguments.dataset_type,
+        config.preprocessing.resample,
+        config.data.languages,
+        config.data.validation_limits,
+        config.data.only_primary_script,
+        not arguments.no_progress,
+    )
+
+    train_lengths = validation_lengths = None
+    if arguments.features is not None or arguments.lengths is not None:
+        languages = {"train": corpus.train.languages, "dev": corpus.dev.languages}
+        # Precomputed features raise until data/store.py is ported.
+        processed = corpus_loading.preprocessed_features_or_lengths(
+            arguments.features or arguments.lengths, languages, lengths_only=arguments.features is None
+        )
+        train_lengths = processed["train"].lengths
+        validation_lengths = processed["dev"].lengths
+
+    if arguments.no_validation:
+        corpus.dev = corpus.dev.__class__.empty()
+
+    # Training rematerialises the encoder layers, as the JAX CLI does, at the
+    # config's precision: bf16 matmuls with an f32 loss tail when mixed
+    # precision is on, full float32 when off.
+    precision = "mixed" if config.nn.mixed_precision else "float32"
+    if checkpoint is not None:
+        estimator, attribute_indexer = Estimator.restore(checkpoint, remat=True, precision=precision, device=device)
+    else:
+        attribute_table = arguments.attribute_path.read() if arguments.attribute_path else None
+        attribute_indexer = PhoneticAttributeIndexer.from_config(
+            config, attribute_table, corpus.train.language_id_inventories()
+        )
+        if arguments.save_all and arguments.save_path is not None:
+            os.makedirs(arguments.save_path, exist_ok=True)
+        estimator = None
+
+    manager = DatasetManager.from_config(
+        config,
+        corpus,
+        attribute_indexer,
+        config.preprocessing.resample or 16_000,
+        train_lengths=train_lengths,
+        validation_lengths=validation_lengths,
+        data_workers=arguments.data_workers,
+    )
+    if estimator is None:
+        estimator = Estimator.from_config(
+            config,
+            manager.feature_size,
+            config.preprocessing.resample or 16_000,
+            manager.attribute_graph(),
+            attribute_indexer,
+            precision=precision,
+            device=device,
+            remat=True,
+        )
+
+    tensorboard_directory = arguments.tensorboard_directory
+    if tensorboard_directory == "":
+        tensorboard_directory = os.path.join("runs", "allophant")
+
+    skip_batches = arguments.skip_batches
+    if skip_batches < 0:
+        # Auto-resume: skip the batches the checkpoint's current epoch already
+        # consumed (recorded at every validation point).
+        skip_batches = int(estimator.epoch.step or 0) if arguments.restore else 0
+
+    run = estimator.train(manager, tensorboard_directory, skip_batches=skip_batches, show_progress=not arguments.no_progress)
+
+    # Graceful preemption: SIGTERM/SIGINT ask the loop to stop at the next step
+    # boundary, after which the INTERRUPTED branch below checkpoints the full
+    # resumable state. A second signal restores the default handler, so it
+    # kills the process the usual way if the final step or save hangs.
+    original_handlers = {}
+
+    def _graceful_stop(signum, frame):
+        run.request_stop()
+        signal.signal(signum, original_handlers[signum])
+        MAIN_LOGGER.warning(
+            "Received %s: stopping after the in-flight step and checkpointing (send again to force exit)",
+            signal.Signals(signum).name,
+        )
+
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        original_handlers[signum] = signal.signal(signum, _graceful_stop)
+    try:
+        for status, statistics in run:
+            MAIN_LOGGER.info("%s", statistics)
+            if not arguments.no_progress:
+                print(statistics, flush=True)
+            if arguments.save_path is not None and status not in (
+                TrainingStatus.FINISHED,
+                TrainingStatus.EARLY_STOPPED,
+            ):
+                indexer_state = manager.processor.indexer_state()
+                training_state = run.serialized_training_state()
+                if status == TrainingStatus.INTERRUPTED:
+                    interrupted_path = _interrupted_checkpoint_path(arguments.save_path)
+                    estimator.save(interrupted_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state)
+                    print(f"Training interrupted; state saved to {interrupted_path}", flush=True)
+                elif arguments.save_all:
+                    epoch_path = os.path.join(arguments.save_path, _checkpoint_name(statistics.epoch))
+                    estimator.save(epoch_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state)
+                    if status == TrainingStatus.IMPROVED:
+                        shutil.copy2(epoch_path, os.path.join(arguments.save_path, BEST_CHECKPOINT))
+                elif status == TrainingStatus.IMPROVED:
+                    estimator.save(
+                        arguments.save_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state
+                    )
+            if status == TrainingStatus.EARLY_STOPPED and not arguments.no_progress:
+                print("Training stopped early", flush=True)
+    finally:
+        for signum, handler in original_handlers.items():
+            # Leave the default handler in place if the first signal already
+            # restored it mid-loop.
+            if signal.getsignal(signum) is _graceful_stop:
+                signal.signal(signum, handler)
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +683,15 @@ def edits(arguments: Namespace) -> None:
 def make_parser() -> ArgumentParser:
     from allophant_tpu_torch.training.checkpoint import VERSION
 
+    needs_config_parser = ArgumentParser(add_help=False)
+    needs_config_parser.add_argument(
+        "-c", "--config", default=None,
+        help="Path to a configuration file in toml format (generate one with generate-config)",
+    )
+    needs_config_parser.add_argument(
+        "-j", "--config-json-data", default=None, help="Inline JSON configuration overriding -c/--config"
+    )
+
     progress_parser = ArgumentParser(add_help=False)
     progress_parser.add_argument("--no-progress", action="store_true", help="Disables progress printing")
 
@@ -502,14 +712,59 @@ def make_parser() -> ArgumentParser:
     )
     dataset_processing_parser.add_argument(
         "-w", "--data-workers", type=int, default=None,
-        help="Default: a single prefetch thread builds the batches; 0 disables prefetching."
-        " Worker processes (N >= 1) are not ported and raise",
+        help="Batch-building worker processes (decoding, resampling, labels and padding"
+        " outside the GIL, like the reference's DataLoader workers). Default: a single"
+        " prefetch thread; 0 disables prefetching entirely",
     )
 
-    parser = ArgumentParser(description="Transcribes and evaluates with universal phoneme recognizer models")
+    parser = ArgumentParser(description="Trains and evaluates universal phoneme recognizer models")
     parser.add_argument("-v", "--version", action="version", version=f"%(prog)s {VERSION}")
     subparsers = parser.add_subparsers(dest="mode")
     subparsers.required = True
+
+    train_parser = subparsers.add_parser(
+        "train",
+        parents=[needs_config_parser, dataset_processing_parser, progress_parser],
+        help="Trains a universal phoneme recognizer model",
+    )
+    train_parser.add_argument(
+        "-a", "--attribute-path", type=FileType("r", encoding="utf-8"), help="Path to a (processed) feature table"
+    )
+    train_parser.add_argument(
+        "-t", "--dataset-type", choices=["common-voice"], default="common-voice", help="Type of the dataset"
+    )
+    train_parser.add_argument(
+        "-s", "--save-path", help="Path the best model is saved to, or a checkpoint directory with --save-all"
+    )
+    train_parser.add_argument(
+        "-r", "--restore", action="store_true",
+        help="Restores the model from --save-path instead of initializing a new model",
+    )
+    train_parser.add_argument("-n", "--no-validation", action="store_true", help="Disables validation during training")
+    train_parser.add_argument(
+        "-d", "--save-all", action="store_true",
+        help="Saves all checkpoints in a directory; the best is copied to best.ckpt",
+    )
+    train_parser.add_argument(
+        "-b", "--tensorboard", nargs="?", const="", action="store", dest="tensorboard_directory",
+        help="Enables tensorboard summary writing",
+    )
+    train_parser.add_argument(
+        "--detect-anomaly", action="store_true",
+        help="Enables autograd anomaly detection to trace NaNs during training",
+    )
+    train_parser.add_argument(
+        "--skip-batches", type=int, default=-1,
+        help="Batches of the current epoch to skip when resuming (-1 resumes from the checkpoint's"
+        " recorded position with --restore; 0 disables)",
+    )
+    preprocessed_group = train_parser.add_mutually_exclusive_group()
+    preprocessed_group.add_argument(
+        "-f", "--features", help="Path to precomputed features generated via the data 'preprocess' command"
+    )
+    preprocessed_group.add_argument(
+        "-l", "--lengths", help="Precomputed per-utterance feature lengths (data 'save-lengths' command)"
+    )
 
     config_parser = subparsers.add_parser(
         "generate-config", help="Generates a configuration file from a default template"
@@ -608,6 +863,12 @@ def main(args: Sequence[str] | None = None) -> None:
     arguments = make_parser().parse_args(sys.argv[1:] if args is None else args)
     if arguments.mode == "generate-config":
         generate_config(arguments)
+    elif arguments.mode == "train":
+        if arguments.detect_anomaly:
+            import torch
+
+            torch.autograd.set_detect_anomaly(True)
+        train_network(arguments)
     elif arguments.mode == "evaluate":
         evaluate(arguments)
     elif arguments.mode == "predict":

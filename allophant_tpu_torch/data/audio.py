@@ -1,6 +1,6 @@
 """Audio loading, duration probing and sinc resampling — no torchaudio/mutagen
-(the port's copy of ``allophant_tpu/data/audio.py``; MP3 decoding is not
-ported yet, MP3 duration probing is).
+(the port's copy of ``allophant_tpu/data/audio.py``). MP3 goes through the
+system libmpg123 (``native/audio_codecs.py``).
 
 Counterparts:
 - ``load_audio`` replaces ``torchaudio.load`` (reference speech_corpus.py:265-297):
@@ -98,9 +98,12 @@ def load_audio(path: str, resample_to: Optional[int] = None) -> Tuple[np.ndarray
 
 
 def _load_mp3(path: str) -> Tuple[np.ndarray, int]:
-    """MP3 decoding (the JAX package's ``native/audio_codecs.py`` binding of
-    the system libmpg123) is not ported yet."""
-    raise NotImplementedError(f"MP3 decoding is not ported yet: {path!r}")
+    """Decodes MP3 via the system libmpg123 (ctypes binding,
+    ``native/audio_codecs.py``) — the path Common Voice clips take
+    (reference: torchaudio.load, speech_corpus.py:178-181)."""
+    from allophant_tpu_torch.native.audio_codecs import decode_mp3
+
+    return decode_mp3(path)
 
 
 _RESAMPLE_KERNEL_CACHE: dict = {}

@@ -1,6 +1,5 @@
 """Samplers and batch generation with static bucketing (the port's copy of
-``allophant_tpu/data/batching.py``; the multi-host slicing and the worker-process
-pool are not ported, the prefetch thread is).
+``allophant_tpu/data/batching.py``).
 
 Counterpart of the reference's allophant/batching.py, with the key XLA-driven change:
 batches are padded to *shape buckets* (sequence lengths rounded up to a multiple,
@@ -12,12 +11,15 @@ jit cache sees few distinct shapes, replacing fully dynamic padded shapes.
 - ``MaxFrameBatchSampler``: packs utterances until ``(batch + 1) * max_len`` exceeds
   the padded-frame budget (reference :94-139).
 - ``SkipBatchSampler``: resume support (reference :142-159).
-- ``Batcher``: draws samples, collates, pads; a background prefetch thread overlaps
-  host-side audio decoding with device steps (replacing torch DataLoader workers)."""
+- ``Batcher``: draws samples, collates, pads; a background prefetch thread, or
+  forked worker processes (``data_workers >= 1``, the reference's DataLoader
+  workers), overlap host-side audio decoding with device steps; with
+  ``process_shard`` each process builds only its slice of a global batch."""
 
 from __future__ import annotations
 
 import queue
+import signal
 import threading
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence
 
@@ -276,6 +278,37 @@ def build_batch(
     return LabeledBatch(audio, lengths, language_ids, attribute_indices, label_lengths)
 
 
+# Worker-process state for process-pool batch building, set once per worker by
+# ``_pool_worker_init`` (inherited by fork, so the dataset is never pickled —
+# the process-based counterpart of the reference's DataLoader workers,
+# reference batching.py:302-311).
+_POOL_STATE: dict = {}
+
+
+def _pool_worker_init(data, length_multiple, pad_batch, label_multiple) -> None:
+    # A worker inherits the parent's signal handlers (the train CLI's graceful
+    # stop); it only builds batches, so it dies as any process would and the
+    # parent decides when to stop.
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    signal.signal(signal.SIGINT, signal.SIG_DFL)
+    _POOL_STATE["data"] = data
+    _POOL_STATE["length_multiple"] = length_multiple
+    _POOL_STATE["pad_batch"] = pad_batch
+    _POOL_STATE["label_multiple"] = label_multiple
+
+
+def _pool_build_batch(indices: List[int]) -> Batch:
+    data = _POOL_STATE["data"]
+    samples = [data[index] for index in indices]
+    return build_batch(
+        samples,
+        data.batch_type,
+        _POOL_STATE["length_multiple"],
+        _POOL_STATE["pad_batch"],
+        _POOL_STATE["label_multiple"],
+    )
+
+
 def _prefetch(iterator: Iterator, buffer_size: int = 2) -> Iterator:
     """Runs `iterator` in a daemon thread with a bounded queue (overlaps host-side
     feature extraction with device execution)."""
@@ -318,10 +351,10 @@ class Batcher:
         self._batching_mode = batching_mode
         self._language_oversampling_factor = language_oversampling_factor
         # None -> one prefetch thread builds host arrays ahead of the step
-        # (the host-to-device copy stays with the caller); 0 -> synchronous.
-        # Worker processes (the JAX package's N >= 1) are not ported.
-        if data_workers not in (None, 0):
-            raise ValueError(f"data_workers must be None (prefetch thread) or 0 (synchronous), got {data_workers}")
+        # (the host-to-device copy stays with the caller); N >= 1 -> N forked
+        # worker processes build batches (decode + resample + labels +
+        # padding) outside the GIL; 0 -> synchronous.
+        self._workers = data_workers
         self._prefetch = data_workers is None
         self._length_multiple = length_multiple
         self._pad_batch = pad_batch_to_power_of_two
@@ -338,11 +371,21 @@ class Batcher:
         shuffle: bool = False,
         seed: Optional[int] = None,
         skip_batches: int = 0,
+        process_shard: Optional[tuple] = None,
+        shard_multiple: int = 1,
     ) -> Iterator[Batch]:
         """The batches of ``data`` in sampler order; ``skip_batches`` skips the
         first ones (mid-epoch resume). With ``shuffle`` the order is drawn from
         ``seed`` by numpy's generator, as the JAX package draws it, so both
-        give the same batches."""
+        give the same batches.
+
+        ``process_shard=(process_index, process_count)`` enables multi-process
+        loading: every process draws the *same* batch sequence (same seed) but
+        materializes audio only for its contiguous row slice, padded to
+        globally agreed shapes. Requires ``data_lengths`` in feature-frame
+        units (RAW audio or precomputed features). ``shard_multiple`` rounds
+        the global batch row count up to a multiple (the total device count)
+        with filler rows so every step shards evenly."""
         corpus = data.corpus
         rng = np.random.default_rng(seed)
 
@@ -366,10 +409,44 @@ class Batcher:
 
         index_batches: Iterable[List[int]] = SkipBatchSampler(batch_sampler, skip_batches)
 
-        iterator = self._generate_full(data, index_batches)
-        if self._prefetch:
-            iterator = _prefetch(iterator)
+        if process_shard is not None and process_shard[1] > 1:
+            iterator = self._generate_process_slices(
+                data, data_lengths, index_batches, process_shard, shard_multiple
+            )
+            if self._prefetch:
+                iterator = _prefetch(iterator)
+        elif self._workers and self._workers > 0:
+            iterator = self._generate_pooled(data, index_batches)
+        else:
+            iterator = self._generate_full(data, index_batches)
+            if self._prefetch:
+                iterator = _prefetch(iterator)
         yield from iterator
+
+    def _generate_pooled(self, data: PhonemeDataset, index_batches) -> Iterator[Batch]:
+        """Builds batches in ``self._workers`` forked processes; ``imap`` keeps
+        batch order and every idle worker pulling ahead. The dataset is
+        inherited by fork (never pickled); finished batches come back as
+        pickled numpy arrays. The workers run numpy and Python only: a CUDA
+        call in a forked child fails, so nothing on this path may touch the
+        card. Closing the generator (or dropping it) terminates the pool."""
+        import multiprocessing
+        import warnings
+
+        context = multiprocessing.get_context("fork")
+        with warnings.catch_warnings():
+            # Python warns that fork in a threaded process can deadlock if the
+            # child takes a lock another thread held; the workers take none of
+            # the parent's locks (the DataLoader's own contract).
+            warnings.filterwarnings("ignore", message=".*fork.*", category=DeprecationWarning)
+            warnings.filterwarnings("ignore", message=".*fork.*", category=RuntimeWarning)
+            pool = context.Pool(
+                self._workers,
+                initializer=_pool_worker_init,
+                initargs=(data, self._length_multiple, self._pad_batch, self._label_multiple),
+            )
+        with pool:
+            yield from pool.imap(_pool_build_batch, index_batches)
 
     def _generate_full(self, data: PhonemeDataset, index_batches) -> Iterator[Batch]:
         for indices in index_batches:
@@ -377,4 +454,65 @@ class Batcher:
             yield build_batch(
                 samples, data.batch_type, self._length_multiple, self._pad_batch,
                 self._label_multiple,
+            )
+
+    def _generate_process_slices(
+        self, data: PhonemeDataset, data_lengths, index_batches, process_shard, shard_multiple
+    ) -> Iterator[Batch]:
+        process_index, process_count = process_shard
+        if data_lengths is None:
+            raise ValueError(
+                "Multi-process batching needs per-utterance frame lengths to agree on"
+                " global pad targets without loading every process's audio"
+            )
+        data_lengths = np.asarray(data_lengths)
+
+        for indices in index_batches:
+            # Global row count padded so it splits evenly over processes and
+            # devices; filler rows carry zero lengths and are excluded from the
+            # loss via row weights downstream.
+            global_rows = _round_up(len(indices), max(process_count * shard_multiple, 1))
+            local_rows = global_rows // process_count
+            start = process_index * local_rows
+            local_indices = indices[start : start + local_rows]
+
+            # Global pad targets every process derives identically: audio length
+            # from the precomputed length table, label widths from the
+            # (audio-free) label path for rows other processes own.
+            pad_to_length = int(max(data_lengths[index] for index in indices))
+            label_pad: Optional[Dict[str, int]] = None
+            if data.batch_type == BatchType.INDEXED:
+                local_set = set(local_indices)
+                label_pad = {}
+                for index in indices:
+                    if index in local_set:
+                        continue  # counted from the fully loaded samples below
+                    for name, labels in data.sample_labels(index).items():
+                        label_pad[name] = max(label_pad.get(name, 0), len(labels))
+
+            samples = [data[index] for index in local_indices]
+            if samples and label_pad is not None:
+                for sample in samples:
+                    for name, labels in (sample.attribute_indices or {}).items():
+                        label_pad[name] = max(label_pad.get(name, 0), len(labels))
+            if not samples:
+                # Degenerate tail (fewer rows than processes): materialize one
+                # sample as a shape template and turn it into zero-length filler.
+                template = data[indices[0]]
+                template.features = template.features[:0]
+                template.length = 0
+                if template.attribute_indices is not None:
+                    template.attribute_indices = {
+                        name: values[:0] for name, values in template.attribute_indices.items()
+                    }
+                samples = [template]
+            yield build_batch(
+                samples,
+                data.batch_type,
+                self._length_multiple,
+                self._pad_batch,
+                self._label_multiple,
+                pad_to_length=pad_to_length,
+                pad_to_batch=local_rows,
+                label_pad=label_pad,
             )

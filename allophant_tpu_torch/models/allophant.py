@@ -1,4 +1,5 @@
-"""Top-level Allophant model, wav2vec2 acoustic model only (counterpart of
+"""Top-level Allophant model over either acoustic model, the wav2vec2 encoder
+or the from-scratch transformer (counterpart of
 ``allophant_tpu/models/allophant.py``), and its builders from a configuration:
 ``attribute_graph_from_config`` and ``build_model``."""
 
@@ -15,6 +16,7 @@ from allophant_tpu_torch.config import (
     Architecture,
     PhonemeLayerType,
     ProjectionEntryConfig,
+    TransformerAcousticModelConfig,
     Wav2Vec2PretrainedConfig,
     whole_run_frozen_prefix,
 )
@@ -25,7 +27,8 @@ from allophant_tpu_torch.models.projection import (
     ProjectionPlan,
     build_projection_plan,
 )
-from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture, Wav2Vec2Model
+from allophant_tpu_torch.models.transformer import TransformerAcousticModel, TransformerArchitecture
+from allophant_tpu_torch.models.wav2vec2 import REMAT_SAVE_NAMES_BASE, Wav2Vec2Architecture, Wav2Vec2Model
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph, AttributeNode, TimeLayerConfig
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
 
@@ -49,7 +52,8 @@ def needs_intermediate_taps(plan: ProjectionPlan) -> bool:
 
 
 class AllophantModel(nn.Module):
-    """wav2vec2 encoder + hierarchical projection.
+    """Acoustic model (the wav2vec2 encoder of a ``Wav2Vec2Architecture``, or
+    the transformer of a ``TransformerArchitecture``) + hierarchical projection.
 
     ``head_dtype`` (None = ``dtype``) is the compute dtype of the classifier
     head; the "mixed" preset runs the encoder in bf16 and the head in f32, with
@@ -58,26 +62,36 @@ class AllophantModel(nn.Module):
     serving model, where the casts are no-ops), float32 gives a training
     model its f32 master weights, cast at each call as flax casts them.
     ``frozen_prefix`` is the acoustic model's whole-run-frozen prefix
-    (``whole_run_frozen_prefix``)."""
+    (``whole_run_frozen_prefix``); ``remat`` rematerialises the wav2vec2
+    encoder layers in training, keeping ``remat_save_names`` (the
+    transformer takes neither, as in the JAX model)."""
 
     def __init__(
         self,
-        architecture: Wav2Vec2Architecture,
+        architecture: Wav2Vec2Architecture | TransformerArchitecture,
         plan: ProjectionPlan,
         dtype: torch.dtype = torch.float32,
         head_dtype: Optional[torch.dtype] = None,
         device=None,
         param_dtype: Optional[torch.dtype] = None,
         frozen_prefix: int = 0,
+        remat: bool = False,
+        remat_save_names=REMAT_SAVE_NAMES_BASE,
     ):
         super().__init__()
         self.architecture = architecture
         self.plan = plan
         self.dtype = dtype
         self.head_dtype = dtype if head_dtype is None else head_dtype
-        self.acoustic_model = Wav2Vec2Model(
-            architecture, dtype, needs_intermediate_taps(plan), device, param_dtype, frozen_prefix
-        )
+        if isinstance(architecture, Wav2Vec2Architecture):
+            self.acoustic_model = Wav2Vec2Model(
+                architecture, dtype, needs_intermediate_taps(plan), device, param_dtype, frozen_prefix,
+                remat, remat_save_names,
+            )
+        elif isinstance(architecture, TransformerArchitecture):
+            self.acoustic_model = TransformerAcousticModel(architecture, dtype, device, param_dtype)
+        else:
+            raise ValueError(f"Unsupported acoustic model architecture: {type(architecture).__name__}")
         self.projection = HierarchicalProjection(plan, self.head_dtype, device, param_dtype)
 
     def forward(
@@ -152,22 +166,27 @@ def build_model(
     head_dtype: Optional[torch.dtype] = None,
     device=None,
     param_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    remat_save_names=REMAT_SAVE_NAMES_BASE,
 ) -> BuiltModel:
     """The Allophant model of an ``nn`` configuration (reference :988-1025),
     on ``device``, with zero weights and the plan's static tables in place.
-    The encoder is XLS-R 300M unless ``wav2vec2_architecture`` replaces it,
-    cut above the highest "OUTPUT_<i>" tap. Only the wav2vec2-pretrained
-    acoustic model is ported."""
+    A wav2vec2-pretrained encoder is XLS-R 300M unless
+    ``wav2vec2_architecture`` replaces it, cut above the highest "OUTPUT_<i>"
+    tap; a pre-LN transformer reads ``feature_size`` features a frame."""
     layer_config = architecture.acoustic_model
-    if not isinstance(layer_config, Wav2Vec2PretrainedConfig):
-        raise ValueError(f"The port builds wav2vec2-pretrained acoustic models, not {type(layer_config).__name__}")
-    if sample_rate != 16_000:
-        raise ValueError(
-            "Audio resampling config and the sampling rate required by Wav2Vec2 do not"
-            f" match. Expected 16000Hz, got {sample_rate}Hz"
-        )
-    arch = wav2vec2_architecture if wav2vec2_architecture is not None else Wav2Vec2Architecture()
-    arch = arch.truncated(highest_specific_output_layer(attribute_graph))
+    if isinstance(layer_config, Wav2Vec2PretrainedConfig):
+        if sample_rate != 16_000:
+            raise ValueError(
+                "Audio resampling config and the sampling rate required by Wav2Vec2 do not"
+                f" match. Expected 16000Hz, got {sample_rate}Hz"
+            )
+        arch = wav2vec2_architecture if wav2vec2_architecture is not None else Wav2Vec2Architecture()
+        arch = arch.truncated(highest_specific_output_layer(attribute_graph))
+    elif isinstance(layer_config, TransformerAcousticModelConfig):
+        arch = TransformerArchitecture(layer_config, int(feature_size))
+    else:
+        raise ValueError(f"Unsupported model type: {type(layer_config).__name__}")
 
     language_allophones = None
     if attribute_indexer is not None and architecture.projection.phoneme_layer != PhonemeLayerType.SHARED:
@@ -182,7 +201,7 @@ def build_model(
     )
     model = AllophantModel(
         arch, plan, dtype, head_dtype, device=device, param_dtype=param_dtype,
-        frozen_prefix=whole_run_frozen_prefix(layer_config),
+        frozen_prefix=whole_run_frozen_prefix(layer_config), remat=remat, remat_save_names=remat_save_names,
     )
     from allophant_tpu_torch.weights import load_static_data
 

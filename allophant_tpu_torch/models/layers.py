@@ -38,6 +38,14 @@ class DropoutRng:
         host = torch.Generator(device="cpu").manual_seed(seed)
         return cls(host, torch.Generator(device=device).manual_seed(seed + 1))
 
+    def get_state(self):
+        """Both generators' states, for ``set_state`` to replay a region's draws."""
+        return self.host.get_state(), self.device.get_state()
+
+    def set_state(self, state) -> None:
+        self.host.set_state(state[0])
+        self.device.set_state(state[1])
+
     def kernel_seeds(self):
         """Two int32 seeds for the attention-dropout kernels, drawn on the host."""
         seeds = torch.randint(-(2**31), 2**31 - 1, (2,), generator=self.host, dtype=torch.int64)
@@ -109,17 +117,19 @@ class Conv1d(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm(dtype=...)``: statistics, scale and shift in f32,
-    output in the compute dtype."""
+    output in the compute dtype; without ``affine`` (flax's
+    ``use_scale=use_bias=False``) no scale or shift."""
 
-    def __init__(self, features: int, eps: float, dtype: torch.dtype, device=None):
+    def __init__(self, features: int, eps: float, dtype: torch.dtype, device=None, affine: bool = True):
         super().__init__()
         self.eps = eps
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
+        self.features = features
+        self.weight = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device)) if affine else None
+        self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device)) if affine else None
 
     def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        normalized = F.layer_norm(hidden.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        normalized = F.layer_norm(hidden.float(), (self.features,), self.weight, self.bias, self.eps)
         return normalized.to(self.dtype)
 
 

@@ -6,8 +6,20 @@ do not change valid outputs:
 - no 128-frame alignment padding: the attention kernels take any T, and frames
   past each row's length are masked (keys) or dropped downstream (queries);
 - q, k and v come from one fused [D, 3D] projection, and the attention kernels
-  read them in place through their strides;
-- no rematerialisation yet: activations are kept for the backward.
+  read them in place through their strides.
+
+Rematerialisation (``remat=True``, training) keeps JAX's saved sets: of each
+encoder layer only its input and the tensors named in ``remat_save_names``
+(``REMAT_SAVE_NAMES_BASE``: the fused QKV projection, the FFN's pre-GELU tile
+and the attention context; ``_EXTENDED`` adds the attention and FFN outputs)
+outlive the forward; everything else is recomputed in the backward. A layer
+runs as two checkpointed regions around the attention (``rematerialised``):
+LayerNorm + QKV projection, then the output projection, residuals and FFN.
+The attention's autograd Function (K5 forward, K4 backward) stays outside
+both, so its inputs (the QKV tile) and output (the context) are kept and the
+backward never reruns it. Inside a region, a selective-checkpoint policy keeps
+the matmul outputs of the named projections; the region's dropout draws are
+replayed from the ``DropoutRng`` states it began with.
 
 Every dropout site of the JAX model is here (feature projection, encoder
 input, attention weights, after attention, FFN activation and output); a
@@ -19,10 +31,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import List, Optional, Tuple
+import threading
+from typing import Callable, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from allophant_tpu_torch.models.layers import ChannelGroupNorm, Conv1d, Dense, DropoutRng, LayerNorm, dropout
 from allophant_tpu_torch.ops import masking
@@ -154,6 +168,69 @@ class PositionalConvEmbedding(nn.Module):
         return fast_gelu(embeddings)
 
 
+# Remat residual sets (names as in the JAX model): BASE keeps the projection
+# and FFN tiles whose matmuls dominate the recompute; EXTENDED also keeps the
+# attention out-projection and FFN down-projection outputs, leaving only
+# elementwise work to recompute.
+REMAT_SAVE_NAMES_BASE = ("w2v2_qkv", "w2v2_ffn_hidden", "w2v2_attn_context")
+REMAT_SAVE_NAMES_EXTENDED = REMAT_SAVE_NAMES_BASE + ("w2v2_attn_out", "w2v2_ffn_out")
+
+_aten = torch.ops.aten
+# The ops that produce a Dense layer's output (F.linear decomposes into one of
+# them, with the bias fused or added).
+_PROJECTION_OPS = frozenset((_aten.addmm.default, _aten.mm.default, _aten.bmm.default, _aten.add.Tensor))
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: str):
+    """Names the projection computed inside (JAX ``checkpoint_name``): under
+    ``rematerialised`` with ``name`` in its save set, its output is kept."""
+    previous = getattr(_SCOPE, "name", None)
+    _SCOPE.name = name
+    try:
+        yield
+    finally:
+        _SCOPE.name = previous
+
+
+def _save_named(save_names: Tuple[str, ...]):
+    def policy(_context, op, *_args, **_kwargs):
+        if op in _PROJECTION_OPS and getattr(_SCOPE, "name", None) in save_names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def rematerialised(function: Callable, rng: Optional[DropoutRng], save_names: Tuple[str, ...], *inputs):
+    """``function(*inputs)`` under activation checkpointing: only the inputs and
+    the named projections of ``save_names`` are kept for the backward, which
+    reruns the rest. ``torch.utils.checkpoint`` replays only the default
+    generators, so the region's ``DropoutRng`` state is taken here and set
+    again for the recompute (then put back), so that the backward sees the
+    forward's dropout masks."""
+    state = None if rng is None else rng.get_state()
+    calls = 0
+
+    def run(*arguments):
+        nonlocal calls
+        calls += 1
+        if calls == 1 or rng is None:
+            return function(*arguments)
+        resumed = rng.get_state()
+        rng.set_state(state)
+        try:
+            return function(*arguments)
+        finally:
+            rng.set_state(resumed)
+
+    return checkpoint(
+        run, *inputs, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(_save_named(save_names)),
+    )
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention over the one-shot kernels; q/k/v come from one
     fused projection whose [B, T, 3D] output the kernels read through strides.
@@ -168,14 +245,23 @@ class SelfAttention(nn.Module):
         self.qkv_proj = Dense(arch.hidden_size, 3 * arch.hidden_size, dtype, device, param_dtype)
         self.out_proj = Dense(arch.hidden_size, arch.hidden_size, dtype, device, param_dtype)
 
-    def forward(self, hidden: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        qkv = self.qkv_proj(hidden)
+    def project(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The fused [B, T, 3D] QKV projection."""
+        with checkpoint_name("w2v2_qkv"):
+            return self.qkv_proj(hidden)
+
+    def attend(self, qkv: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        """The [B, T, D] attention context of a fused QKV tile."""
         query, key, value = qkv.split(self.hidden_size, dim=-1)
         head_dim = self.hidden_size // self.heads
-        context = multi_head_attention(
-            query, key, value, key_bias, head_dim**-0.5, self.heads, self.dropout_rate, rng
-        )
-        return self.out_proj(context)
+        return multi_head_attention(query, key, value, key_bias, head_dim**-0.5, self.heads, self.dropout_rate, rng)
+
+    def output(self, context: torch.Tensor) -> torch.Tensor:
+        with checkpoint_name("w2v2_attn_out"):
+            return self.out_proj(context)
+
+    def forward(self, hidden: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.output(self.attend(self.project(hidden), key_bias, rng))
 
 
 class FeedForward(nn.Module):
@@ -187,31 +273,62 @@ class FeedForward(nn.Module):
         self.output_dense = Dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype)
 
     def forward(self, hidden: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        hidden = dropout(fast_gelu(self.intermediate_dense(hidden)), self.activation_dropout, rng)
-        return dropout(self.output_dense(hidden), self.hidden_dropout, rng)
+        with checkpoint_name("w2v2_ffn_hidden"):
+            hidden = self.intermediate_dense(hidden)
+        hidden = dropout(fast_gelu(hidden), self.activation_dropout, rng)
+        with checkpoint_name("w2v2_ffn_out"):
+            hidden = self.output_dense(hidden)
+        return dropout(hidden, self.hidden_dropout, rng)
 
 
 class EncoderLayer(nn.Module):
-    """Transformer encoder layer: pre-LN ("stable layer norm", XLS-R) or post-LN."""
+    """Transformer encoder layer: pre-LN ("stable layer norm", XLS-R) or post-LN;
+    with ``remat``, its training forward runs as two rematerialised regions
+    around the attention."""
 
-    def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None):
+    def __init__(
+        self,
+        arch: Wav2Vec2Architecture,
+        dtype: torch.dtype,
+        device=None,
+        param_dtype=None,
+        remat: bool = False,
+        remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
+    ):
         super().__init__()
         self.stable = arch.do_stable_layer_norm
         self.hidden_dropout = arch.hidden_dropout
+        self.remat = remat
+        self.remat_save_names = tuple(remat_save_names)
         self.layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
         self.attention = SelfAttention(arch, dtype, device, param_dtype)
         self.final_layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
         self.feed_forward = FeedForward(arch, dtype, device, param_dtype)
 
-    def forward(self, hidden: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        attention_input = self.layer_norm(hidden) if self.stable else hidden
-        attention_output = dropout(self.attention(attention_input, key_bias, rng), self.hidden_dropout, rng)
-        hidden = hidden + attention_output
+    def _attention_input(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.layer_norm(hidden) if self.stable else hidden
+
+    def _project(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.attention.project(self._attention_input(hidden))
+
+    def _residuals(self, hidden: torch.Tensor, attention_output: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
+        hidden = hidden + dropout(attention_output, self.hidden_dropout, rng)
         if not self.stable:
             hidden = self.layer_norm(hidden)
         feed_forward_input = self.final_layer_norm(hidden) if self.stable else hidden
         hidden = hidden + self.feed_forward(feed_forward_input, rng)
         return hidden if self.stable else self.final_layer_norm(hidden)
+
+    def _finish(self, hidden: torch.Tensor, context: torch.Tensor, rng: Optional[DropoutRng]) -> torch.Tensor:
+        return self._residuals(hidden, self.attention.output(context), rng)
+
+    def forward(self, hidden: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            names = self.remat_save_names
+            qkv = rematerialised(self._project, rng, names, hidden)
+            context = self.attention.attend(qkv, key_bias, rng)
+            return rematerialised(self._finish, rng, names, hidden, context, rng)
+        return self._residuals(hidden, self.attention(self._attention_input(hidden), key_bias, rng), rng)
 
 
 class Wav2Vec2Encoder(nn.Module):
@@ -220,7 +337,14 @@ class Wav2Vec2Encoder(nn.Module):
     it, only the final state."""
 
     def __init__(
-        self, arch: Wav2Vec2Architecture, dtype: torch.dtype, collect_all: bool = True, device=None, param_dtype=None
+        self,
+        arch: Wav2Vec2Architecture,
+        dtype: torch.dtype,
+        collect_all: bool = True,
+        device=None,
+        param_dtype=None,
+        remat: bool = False,
+        remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
     ):
         super().__init__()
         self.stable = arch.do_stable_layer_norm
@@ -229,7 +353,8 @@ class Wav2Vec2Encoder(nn.Module):
         self.pos_conv_embed = PositionalConvEmbedding(arch, dtype, device, param_dtype)
         self.layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
         self.layers = nn.ModuleList(
-            EncoderLayer(arch, dtype, device, param_dtype) for _ in range(arch.num_hidden_layers)
+            EncoderLayer(arch, dtype, device, param_dtype, remat, remat_save_names)
+            for _ in range(arch.num_hidden_layers)
         )
 
     def forward(
@@ -265,7 +390,8 @@ class Wav2Vec2Model(nn.Module):
     ``param_dtype`` (None = ``dtype``) stores the matmul and convolution
     weights; ``frozen_prefix`` is the number of leading groups of
     (feature_extractor, feature_projection, encoder) that run without
-    gradients (JAX: ``stop_gradient`` at the prefix boundary)."""
+    gradients (JAX: ``stop_gradient`` at the prefix boundary); ``remat``
+    rematerialises the encoder layers in training."""
 
     def __init__(
         self,
@@ -275,13 +401,15 @@ class Wav2Vec2Model(nn.Module):
         device=None,
         param_dtype=None,
         frozen_prefix: int = 0,
+        remat: bool = False,
+        remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
     ):
         super().__init__()
         self.arch = arch
         self.frozen_prefix = frozen_prefix
         self.feature_extractor = ConvFeatureEncoder(arch, dtype, device, param_dtype)
         self.feature_projection = FeatureProjection(arch, dtype, device, param_dtype)
-        self.encoder = Wav2Vec2Encoder(arch, dtype, collect_all, device, param_dtype)
+        self.encoder = Wav2Vec2Encoder(arch, dtype, collect_all, device, param_dtype, remat, remat_save_names)
 
     def _prefix(self, group: int):
         """The gradient mode of the ``group``-th group (1-based)."""

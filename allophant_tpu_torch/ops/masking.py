@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -46,3 +46,18 @@ def zero_mean_unit_var_norm(features: torch.Tensor, lengths: torch.Tensor, mask:
     deviations = (features - means) * mask
     variances = (deviations**2).sum(dim=1, keepdim=True) / lengths[:, None]
     return ((features - means) / torch.sqrt(variances + 1e-7)) * mask
+
+
+def get_padding(kernel_size: int, stride: int = 1, stft_type: bool = False) -> Tuple[int, int]:
+    """Symmetric-ish padding amounts of the from-scratch frontend convolutions
+    (reference padding.py:10-21)."""
+    if stft_type:
+        padding = kernel_size // 2
+        if stride == 1:
+            return (padding, padding - 1)
+        return (padding, padding)
+    if stride > 1:
+        # Enough padding for a strided filter to reach the edge.
+        return (kernel_size // 2, kernel_size - 1)
+    padding = kernel_size // 2
+    return (padding, padding)

@@ -804,7 +804,7 @@ class PhoneticAttributeIndexer(PhonemeIndexer):
     """Central phonetic oracle: loads the Allophoible feature CSV, binarizes feature
     categories, and exposes full / training-subset / full-phoneme-subset views plus
     allophone data and zero-shot composition matrices (reference :601-971).
-    Only the PHOIBLE feature set is ported."""
+    PHOIBLE and panphon feature sets."""
 
     def __init__(
         self,
@@ -817,19 +817,40 @@ class PhoneticAttributeIndexer(PhonemeIndexer):
     ):
         self._allophone_data: AllophoneData | None = None
 
-        if feature_set != FeatureSet.PHOIBLE:
-            raise ValueError(f"Unsupported feature set: {feature_set} (the port reads PHOIBLE tables only)")
-        original_feature_table = read_allophoible(attribute_table_file, index_column="Phoneme")
-        self._allophone_data_frame, phoneme_subset = generate_allophone_data(
-            language_inventories, original_feature_table, phoneme_subset=phoneme_subset
-        )
-        feature_start_column = "tone"
-        phoneme_attributes = original_feature_table.first_of_each_label().select_columns(
-            ["SegmentClass", *original_feature_table.columns_from(feature_start_column)]
-        )
+        if feature_set == FeatureSet.PHOIBLE:
+            original_feature_table = read_allophoible(attribute_table_file, index_column="Phoneme")
+            self._allophone_data_frame, phoneme_subset = generate_allophone_data(
+                language_inventories, original_feature_table, phoneme_subset=phoneme_subset
+            )
+            feature_start_column = "tone"
+            index_label = "Phoneme"
+            phoneme_attributes = original_feature_table.first_of_each_label().select_columns(
+                ["SegmentClass", *original_feature_table.columns_from(feature_start_column)]
+            )
+        elif feature_set == FeatureSet.PANPHON:
+            if allophones_from_allophoible:
+                raise NotImplementedError("Allophone handling is not implemented for Panphon features")
+            self._allophone_data_frame = None
+            index_label = "ipa"
+            original_feature_table = read_panphon(attribute_table_file, index_column=index_label)
+            feature_start_column = "syl"
+            # Drop erroneous duplicate vowels differing only in delrel; keeping the
+            # first selects delrel 0 (reference :628-638; a defect of the panphon table).
+            phoneme_attributes = original_feature_table.first_of_each_label().select_columns(
+                original_feature_table.columns_from(feature_start_column)
+            )
+            # Add tie-stripped variants of multi-segment phonemes so G2P output
+            # without ties still resolves.
+            tied = phoneme_attributes.take(i for i, label in enumerate(phoneme_attributes.index) if TIE in label)
+            tied.index = PhonemeIndex(label.replace(TIE, "") for label in tied.index)
+            phoneme_attributes = Frame.concat([phoneme_attributes, tied])
+            if len(phoneme_attributes.index.unique()) != len(phoneme_attributes.index):
+                raise ValueError("Tie-stripped panphon segments duplicate existing ones")
+        else:
+            raise ValueError(f"Unsupported feature set: {feature_set}")
 
         self._feature_set = feature_set
-        self._table_file = original_feature_table.to_csv(index_label="Phoneme")
+        self._table_file = original_feature_table.to_csv(index_label=index_label)
 
         # Add phonemes as an extra (categorical) feature column.
         phoneme_attributes.set_column(PHONEME_FEATURE, list(phoneme_attributes.index))
@@ -870,25 +891,27 @@ class PhoneticAttributeIndexer(PhonemeIndexer):
         start_position = full_columns.index(feature_start_column)
         composition_start_column = full_columns[start_position + 1]
         # PHOIBLE's start column ("tone") is excluded from the composition
-        # features (reference :689-692).
+        # features; panphon's ("syl") is a regular varying feature
+        # (reference :689-692).
         varying_feature_categories = {
             name: categories
             for name, categories in self._full_attributes._feature_categories.items()
-            if name != feature_start_column
+            if not (feature_set == FeatureSet.PHOIBLE and name == feature_start_column)
         }
         features_only = dict(varying_feature_categories)
         features_only.pop(PHONEME_FEATURE, None)
         self._composition_features = list(features_only)
 
-        _binarize_contours(self._allophone_data_frame, composition_start_column, attribute_vocabularies)
-        unique_rows = self._allophone_data_frame.first_of_each_label()
-        self._allophone_data = AllophoneData(
-            self._allophone_data_frame,
-            ArticulatoryAttributes(
-                unique_rows.select_columns(unique_rows.columns_from(composition_start_column)),
-                dict(varying_feature_categories),
-            ),
-        )
+        if self._allophone_data_frame is not None:
+            _binarize_contours(self._allophone_data_frame, composition_start_column, attribute_vocabularies)
+            unique_rows = self._allophone_data_frame.first_of_each_label()
+            self._allophone_data = AllophoneData(
+                self._allophone_data_frame,
+                ArticulatoryAttributes(
+                    unique_rows.select_columns(unique_rows.columns_from(composition_start_column)),
+                    dict(varying_feature_categories),
+                ),
+            )
 
         # Language-allophone mappings.
         if isinstance(language_inventories, LanguageAllophoneMappings):
@@ -1104,6 +1127,28 @@ class PhoneticAttributeIndexer(PhonemeIndexer):
                 source_mapping[closest_in_source] = target_phoneme
 
         return source_mapping
+
+
+def read_panphon(file=None, index_column: str | None = None) -> Frame:
+    """Reads a panphon feature CSV (``ipa_all.csv`` format) from a path, buffer or
+    CSV text string, every cell a string or ``None``; with no file, falls back
+    to the table shipped with the optional ``panphon`` package (reference
+    phonetic_features.py:974-986)."""
+    if file is None:
+        try:
+            from importlib import resources
+
+            import panphon  # type: ignore[import-not-found]
+        except ImportError as error:
+            raise FileNotFoundError(
+                "No panphon feature table provided and the optional panphon package"
+                " is not installed; pass a path to an ipa_all.csv-format table"
+            ) from error
+        with (resources.files(panphon) / "data/ipa_all.csv").open("r", encoding="utf-8") as default_file:
+            table = _read_csv(default_file)
+    else:
+        table = _read_csv(file)
+    return table if index_column is None else table.set_index(index_column)
 
 
 def read_allophoible(file=None, index_column: str | None = None) -> Frame:

@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from allophant_tpu_torch.config import Config, TransformerAcousticModelConfig
+from allophant_tpu_torch.config import Config, Glu1dConfig, LayerNormConfig, LinearFrontendConfig, TransformerAcousticModelConfig
 from allophant_tpu_torch.models.hf_conversion import convert_wav2vec2_state
 from allophant_tpu_torch.models.projection import ProjectionPlan
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
@@ -185,7 +185,7 @@ def load_checkpoint(file_path: str) -> Checkpoint:
     ``allophant.pt`` is looked up in the local HuggingFace cache only."""
     if os.path.isdir(file_path) and os.path.isfile(os.path.join(file_path, ORBAX_METADATA_FILE)):
         raise NotImplementedError(
-            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 2)"
+            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 1)"
         )
     if not os.path.isfile(file_path):
         resolved = _resolve_hub_file(file_path)
@@ -229,10 +229,83 @@ def _layer_norm(state: Dict[str, np.ndarray], prefix: str) -> Dict[str, np.ndarr
 
 
 def _convert_transformer_acoustic_state(state: Dict[str, np.ndarray], config) -> Dict:
-    raise NotImplementedError(
-        "Reference checkpoints of the transformer acoustic model need models/transformer.py,"
-        " which is not ported (ROADMAP Queue 1, item 1.6)"
-    )
+    """Maps the reference's from-scratch ``TransformerAcousticModel.state_dict()``
+    (acoustic_model.py:665-759, frontend.py:154-265) onto the JAX
+    package's ``models.transformer.TransformerAcousticModel`` tree, which
+    ``weights.transformer_state_from_jax`` carries into the port.
+
+    Reference naming: ``_acoustic_model._frontend._layer.<i>`` (Linear frontend
+    Sequential: optional Dropout, LayerNorm, Linear, LeakyReLU),
+    ``_acoustic_model._sequential_frontend._layers.layers.<i>.module`` per
+    LengthWrapper (GLU conv under ``._weights``, affine LayerNorm at Sequential
+    slot 1 between two Transposes), ``_acoustic_model._transformer.layers.<i>``
+    torch encoder layers (packed ``self_attn.in_proj_*``), and
+    ``_acoustic_model._final_layer_norm``. The JAX tree's encoder layers run
+    under ``nn.scan``, so per-layer tensors stack into leading-[L] arrays."""
+    prefix = "_acoustic_model."
+    params: Dict[str, Any] = {}
+    affine = config.elementwise_affine
+
+    frontend = config.frontend
+    if isinstance(frontend, LinearFrontendConfig):
+        # Sequential indices shift by one when an input-dropout module leads.
+        offset = 1 if frontend.input_dropout > 0 else 0
+        if affine:
+            params["frontend_norm"] = _layer_norm(state, f"{prefix}_frontend._layer.{offset}")
+        params["frontend_linear"] = _linear(state, f"{prefix}_frontend._layer.{offset + 1}")
+
+    if config.sequential_frontend is not None:
+        sequential: Dict[str, Any] = {}
+        for index, layer in enumerate(config.sequential_frontend.layers):
+            base = f"{prefix}_sequential_frontend._layers.layers.{index}.module"
+            if isinstance(layer, Glu1dConfig):
+                weight = state[f"{base}._weights.weight"]  # torch Conv1d [2C, in, K]
+                sequential[f"glu_{index}"] = {
+                    "weights": {
+                        "kernel": np.ascontiguousarray(weight.transpose(2, 1, 0)),
+                        "bias": state[f"{base}._weights.bias"],
+                    }
+                }
+            elif isinstance(layer, LayerNormConfig) and layer.affine:
+                sequential[f"norm_{index}"] = _layer_norm(state, f"{base}.1")
+        if sequential:
+            params["sequential_frontend"] = sequential
+
+    stacked: Dict[str, Dict[str, List[np.ndarray]]] = {}
+
+    def push(module: str, leaf: str, value: np.ndarray) -> None:
+        stacked.setdefault(module, {}).setdefault(leaf, []).append(value)
+
+    for index in range(config.transformer.num_layers):
+        base = f"{prefix}_transformer.layers.{index}"
+        in_proj_weight = state[f"{base}.self_attn.in_proj_weight"]
+        in_proj_bias = state[f"{base}.self_attn.in_proj_bias"]
+        hidden = in_proj_weight.shape[0] // 3
+        for part, name in enumerate(("q_proj", "k_proj", "v_proj")):
+            push(name, "kernel", np.ascontiguousarray(
+                in_proj_weight[part * hidden : (part + 1) * hidden].T
+            ))
+            push(name, "bias", in_proj_bias[part * hidden : (part + 1) * hidden])
+        out_proj = _linear(state, f"{base}.self_attn.out_proj")
+        push("out_proj", "kernel", out_proj["kernel"])
+        push("out_proj", "bias", out_proj["bias"])
+        for linear_name in ("linear1", "linear2"):
+            linear = _linear(state, f"{base}.{linear_name}")
+            push(linear_name, "kernel", linear["kernel"])
+            push(linear_name, "bias", linear["bias"])
+        if affine:
+            for norm_name in ("norm1", "norm2"):
+                norm = _layer_norm(state, f"{base}.{norm_name}")
+                push(norm_name, "scale", norm["scale"])
+                push(norm_name, "bias", norm["bias"])
+
+    params["layers"] = {
+        module: {leaf: np.stack(values) for leaf, values in leaves.items()}
+        for module, leaves in stacked.items()
+    }
+    if affine:
+        params["final_norm"] = _layer_norm(state, f"{prefix}_final_layer_norm")
+    return params
 
 
 def convert_reference_model_state(

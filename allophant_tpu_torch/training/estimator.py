@@ -21,7 +21,7 @@ from allophant_tpu_torch.data.batch import Batch
 from allophant_tpu_torch.device import resolve_device, set_float32_precision, to_device
 from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
-from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+from allophant_tpu_torch.models.wav2vec2 import REMAT_SAVE_NAMES_BASE, Wav2Vec2Architecture
 from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer, PhoneticIndexerState
@@ -224,13 +224,19 @@ class Estimator:
         seed: int = 0,
         precision: Optional[str] = None,
         device=None,
+        remat: bool = False,
+        remat_save_names=REMAT_SAVE_NAMES_BASE,
     ) -> "Estimator":
         """A trainable Estimator of ``config`` on ``device`` (CUDA unless the
         caller asks for another; raises without one): float32 master
         parameters drawn from ``seed`` (``weights.seeded_initialization``),
         computed in the preset ``precision`` (default: "mixed" when the
-        config asks for mixed precision, else "float32"). Pretrained encoder
-        weights are not loaded: the port has no access to a model hub."""
+        config asks for mixed precision, else "float32"). ``feature_size`` is
+        the input's features a frame (1 for raw samples; the preprocessing
+        config's, ``DatasetManager.feature_size``), which the transformer's
+        frontend reads. ``remat`` rematerialises the wav2vec2 encoder layers
+        in training. Pretrained encoder weights are not loaded: the port has
+        no access to a model hub."""
         from allophant_tpu_torch.models.allophant import build_model
         from allophant_tpu_torch.weights import seeded_initialization
 
@@ -243,6 +249,7 @@ class Estimator:
         built = build_model(
             config.nn, feature_size, sample_rate, attribute_graph, attribute_indexer, wav2vec2_architecture,
             dtype=dtype, head_dtype=head_dtype, device=device, param_dtype=torch.float32,
+            remat=remat, remat_save_names=remat_save_names,
         )
         seeded_initialization(built.model, seed)
         return cls(
@@ -258,6 +265,7 @@ class Estimator:
         wav2vec2_architecture: Optional[Wav2Vec2Architecture] = None,
         precision: Optional[str] = None,
         device=None,
+        remat: bool = False,
     ) -> Tuple["Estimator", PhoneticAttributeIndexer]:
         """Restores from a native or reference checkpoint (a path, a hub model
         id in the local cache, or a parsed ``Checkpoint``) onto ``device``
@@ -272,7 +280,8 @@ class Estimator:
         is ignored (pass ``device``). Without ``wav2vec2_architecture`` the
         encoder is XLS-R 300M, or for a reference checkpoint the architecture
         its tensors show. Every leaf of the checkpoint is shape-checked
-        against the model before any is loaded."""
+        against the model before any is loaded. ``remat`` rematerialises the
+        encoder layers when the restored model trains."""
         from allophant_tpu_torch.weights import load_jax_variables
 
         if isinstance(dtype, str):
@@ -299,6 +308,7 @@ class Estimator:
             wav2vec2_architecture,
             precision=precision,
             device=device,
+            remat=remat,
         )
         model = estimator.model
         expected = variables_from_model(model)
@@ -370,7 +380,7 @@ class Estimator:
         audio = np.asarray(batch.audio_features, dtype=np.float32)
         target = _bucket_length(audio.shape[1])
         if audio.shape[1] < target:
-            audio = np.pad(audio, [(0, 0), (0, target - audio.shape[1])])
+            audio = np.pad(audio, [(0, 0), (0, target - audio.shape[1])] + [(0, 0)] * (audio.ndim - 2))
         device = self.device
         inputs = (
             _unpack_audio_on_device(to_device(_pack_audio_for_upload(audio), device)),

@@ -5,13 +5,17 @@ packed triple (shape, dtype name, C-order bytes)). The card's machine has no
 ``msgpack`` package, and the port needs none.
 
 ``packb`` takes None, bools, ints, floats (as float64), str, bytes, lists,
-tuples, dicts with str keys, numpy arrays and numpy scalars; ``unpackb`` reads
-back what ``packb`` writes, arrays as read-only numpy views of the buffer."""
+tuples, dicts with str keys, numpy arrays, numpy scalars and ``ExtType``
+records; ``unpackb`` reads back what ``packb`` writes, arrays as read-only
+numpy views of the buffer. As in msgpack, ``packb(..., default=f)`` packs
+``f(value)`` for a value of any other type (``f`` may return an
+``ExtType``), and ``unpackb(..., ext_hook=f)`` returns ``f(code, data)`` for
+every extension record instead of decoding flax's arrays."""
 
 from __future__ import annotations
 
 import struct
-from typing import Any, List, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -23,6 +27,13 @@ NPSCALAR_EXT = 3
 #: chunked records of a file flax wrote.
 MAX_ARRAY_BYTES = 2**30
 CHUNKED_ARRAY_KEY = "__msgpack_chunked_array__"
+
+
+class ExtType(NamedTuple):
+    """msgpack's ``ExtType``: an extension record of type ``code``."""
+
+    code: int
+    data: bytes
 
 
 def _pack_length(out: List[bytes], length: int, fixed: Tuple[int, int], markers: Tuple[int, int, int]) -> None:
@@ -82,13 +93,15 @@ def _array_bytes(array: np.ndarray) -> bytes:
     return packb((tuple(int(size) for size in array.shape), array.dtype.name, array.tobytes("C")))
 
 
-def _pack(out: List[bytes], value: Any) -> None:
+def _pack(out: List[bytes], value: Any, default: Optional[Callable[[Any], Any]] = None) -> None:
     if value is None:
         out.append(b"\xc0")
     elif value is True:
         out.append(b"\xc3")
     elif value is False:
         out.append(b"\xc2")
+    elif isinstance(value, ExtType):
+        _pack_ext(out, value.code, bytes(value.data))
     elif isinstance(value, np.ndarray):
         _pack_ext(out, NDARRAY_EXT, _array_bytes(value))
     elif isinstance(value, np.generic):
@@ -108,28 +121,31 @@ def _pack(out: List[bytes], value: Any) -> None:
     elif isinstance(value, (list, tuple)):
         _pack_length(out, len(value), (0x90, 16), (0, 0xDC, 0xDD))
         for item in value:
-            _pack(out, item)
+            _pack(out, item, default)
     elif isinstance(value, dict):
         _pack_length(out, len(value), (0x80, 16), (0, 0xDE, 0xDF))
         for key, item in value.items():
             if not isinstance(key, str):
                 raise TypeError(f"msgpack map keys must be str here, got {type(key).__name__}")
             _pack(out, key)
-            _pack(out, item)
+            _pack(out, item, default)
+    elif default is not None:
+        _pack(out, default(value))
     else:
         raise TypeError(f"Cannot serialize {type(value).__name__}")
 
 
-def packb(value: Any) -> bytes:
+def packb(value: Any, default: Optional[Callable[[Any], Any]] = None) -> bytes:
     out: List[bytes] = []
-    _pack(out, value)
+    _pack(out, value, default)
     return b"".join(out)
 
 
 class _Reader:
-    def __init__(self, data: bytes):
+    def __init__(self, data: bytes, ext_hook: Optional[Callable[[int, bytes], Any]] = None):
         self.data = memoryview(data)
         self.offset = 0
+        self.ext_hook = ext_hook
 
     def take(self, count: int) -> memoryview:
         start = self.offset
@@ -173,13 +189,18 @@ class _Reader:
         fixed = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
         if marker in fixed:
             code = self.unpack("b")
-            return _ext(code, self.take(fixed[marker]))
+            return self.ext(code, self.take(fixed[marker]))
         lengths = {0xC7: "B", 0xC8: "H", 0xC9: "I"}
         if marker in lengths:
             length = self.unpack(lengths[marker])
             code = self.unpack("b")
-            return _ext(code, self.take(length))
+            return self.ext(code, self.take(length))
         raise ValueError(f"Unknown msgpack marker 0x{marker:02x}")
+
+    def ext(self, code: int, data: memoryview):
+        if self.ext_hook is not None:
+            return self.ext_hook(code, bytes(data))
+        return _ext(code, data)
 
     def map(self, count: int) -> dict:
         result = {}
@@ -197,8 +218,8 @@ def _ext(code: int, data: memoryview):
     return array[()] if code == NPSCALAR_EXT else array
 
 
-def unpackb(data: bytes) -> Any:
-    reader = _Reader(data)
+def unpackb(data: bytes, ext_hook: Optional[Callable[[int, bytes], Any]] = None) -> Any:
+    reader = _Reader(data, ext_hook)
     value = reader.value()
     if reader.offset != len(reader.data):
         raise ValueError("Extra bytes after the msgpack value")

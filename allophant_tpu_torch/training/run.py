@@ -701,6 +701,9 @@ class TrainingRun:
                             epoch, window, window_batches, window_utterances, last_grad_norm, epoch_started,
                             TrainingStatus.INTERRUPTED, validate=False,
                         )
+                        # Ends the batch generator now: a pool of batch
+                        # workers is terminated before the caller saves.
+                        groups.close()
                         yield status, statistics
                         return
 

@@ -4,8 +4,9 @@ numpy arrays, ``dataclasses.asdict`` output or JSON), never as imported JAX
 objects.
 
 Layout changes made on the way:
-- the ``nn.scan`` encoder layers ([L, ...] leaves under ``encoder/layers``) are
-  unstacked into one module per layer;
+- the ``nn.scan`` encoder layers ([L, ...] leaves under ``encoder/layers``, or
+  ``layers`` for the transformer acoustic model) are unstacked into one
+  module per layer;
 - Dense kernels [in, out] become torch Linear weights [out, in], and the q/k/v
   projections are concatenated into the fused [3D, D] projection;
 - conv kernels [K, Cin/groups, Cout] become torch Conv1d weights [Cout, Cin/groups, K];
@@ -16,7 +17,8 @@ Layout changes made on the way:
 ``jax_params_from_state`` is the inverse bridge, for parameters and for
 anything shaped like them (gradients, optimizer moments): the port's named
 tensors back to the JAX ``params`` tree layout, with the fused ``qkv_proj``
-split into q, k and v and the encoder layers stacked."""
+split into q, k and v and the encoder layers stacked. Both carry either
+acoustic model: the wav2vec2 encoder or the from-scratch transformer."""
 
 from __future__ import annotations
 
@@ -57,6 +59,13 @@ def _norm(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
     return {f"{prefix}.weight": np.asarray(tree["scale"]), f"{prefix}.bias": np.asarray(tree["bias"])}
 
 
+def _unstacked(layers: Mapping, index: int, *path) -> np.ndarray:
+    node = layers
+    for key in path:
+        node = node[key]
+    return np.asarray(node)[index]
+
+
 def wav2vec2_state_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
     """The port Wav2Vec2Model's state entries from the JAX ``Wav2Vec2Model``
     parameter subtree."""
@@ -81,10 +90,7 @@ def wav2vec2_state_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndar
     layers = encoder["layers"]
     for index in range(num_layers):
         def leaf(*path):
-            node = layers
-            for key in path:
-                node = node[key]
-            return np.asarray(node)[index]
+            return _unstacked(layers, index, *path)
 
         base = f"encoder.layers.{index}"
         attention = f"{base}.attention"
@@ -102,6 +108,41 @@ def wav2vec2_state_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndar
         for name in ("layer_norm", "final_layer_norm"):
             state[f"{base}.{name}.weight"] = leaf(name, "scale")
             state[f"{base}.{name}.bias"] = leaf(name, "bias")
+    return state
+
+
+def transformer_state_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+    """The port TransformerAcousticModel's state entries from the JAX
+    ``TransformerAcousticModel`` parameter subtree (norms carry parameters
+    only when the configuration asks for affine norms)."""
+    state: Dict[str, np.ndarray] = {}
+    for name in ("frontend_norm", "final_norm"):
+        if name in tree:
+            state.update(_norm(tree[name], name))
+    if "frontend_linear" in tree:
+        state.update(_dense(tree["frontend_linear"], "frontend_linear"))
+    for name, value in tree.get("sequential_frontend", {}).items():
+        prefix = f"sequential_frontend.layers.{name}"
+        if name.startswith("glu_"):
+            state.update(_conv(value["weights"], f"{prefix}.weights"))
+        else:
+            state.update(_norm(value, prefix))
+    layers = tree["layers"]
+    for index in range(num_layers):
+        base = f"layers.{index}"
+        state[f"{base}.qkv_proj.weight"] = np.concatenate(
+            [_unstacked(layers, index, name, "kernel").T for name in ("q_proj", "k_proj", "v_proj")]
+        )
+        state[f"{base}.qkv_proj.bias"] = np.concatenate(
+            [_unstacked(layers, index, name, "bias") for name in ("q_proj", "k_proj", "v_proj")]
+        )
+        for name in ("out_proj", "linear1", "linear2"):
+            state[f"{base}.{name}.weight"] = _unstacked(layers, index, name, "kernel").T
+            state[f"{base}.{name}.bias"] = _unstacked(layers, index, name, "bias")
+        for name in ("norm1", "norm2"):
+            if name in layers:
+                state[f"{base}.{name}.weight"] = _unstacked(layers, index, name, "scale")
+                state[f"{base}.{name}.bias"] = _unstacked(layers, index, name, "bias")
     return state
 
 
@@ -138,8 +179,10 @@ def state_dict_from_jax(variables: Mapping, num_layers: int) -> Dict[str, torch.
     ``buffers`` as nested dicts of arrays)."""
     params = variables["params"]
     buffers = variables.get("buffers", {}).get("projection", {})
+    acoustic = params["acoustic_model"]
+    acoustic_state = wav2vec2_state_from_jax if "encoder" in acoustic else transformer_state_from_jax
     state = {
-        **{f"acoustic_model.{key}": value for key, value in wav2vec2_state_from_jax(params["acoustic_model"], num_layers).items()},
+        **{f"acoustic_model.{key}": value for key, value in acoustic_state(acoustic, num_layers).items()},
         **{f"projection.{key}": value for key, value in projection_state_from_jax(params["projection"], buffers).items()},
     }
     return {key: torch.tensor(np.asarray(value)) for key, value in state.items()}
@@ -159,10 +202,12 @@ def _jax_leaf(module: str, leaf: str, value: np.ndarray):
         return "bias", value
     if "norm" in module:
         return "scale", value
-    return "kernel", value.transpose(2, 1, 0) if module.startswith("conv") else value.T
+    return "kernel", value.transpose(2, 1, 0) if value.ndim == 3 else value.T
 
 
-def _jax_module_path(path, architecture: Wav2Vec2Architecture):
+def _jax_module_path(path, architecture):
+    if path[:3] == ["acoustic_model", "sequential_frontend", "layers"]:
+        return [*path[:2], *path[3:]]
     if path[:2] == ["acoustic_model", "feature_extractor"]:
         kind, index = path[2], path[3]
         if kind == "convs":
@@ -173,7 +218,7 @@ def _jax_module_path(path, architecture: Wav2Vec2Architecture):
     return path
 
 
-def jax_params_from_state(state: Mapping[str, Any], architecture: Wav2Vec2Architecture) -> Dict:
+def jax_params_from_state(state: Mapping[str, Any], architecture) -> Dict:
     """The JAX ``params`` tree (nested dicts of numpy arrays) from the port's
     parameter names -> tensors or arrays: the inverse of
     ``state_dict_from_jax`` for parameters and anything shaped like them."""
@@ -187,9 +232,9 @@ def jax_params_from_state(state: Mapping[str, Any], architecture: Wav2Vec2Archit
     for name, value in state.items():
         value = np.array(value.detach().cpu() if isinstance(value, torch.Tensor) else value)  # a copy
         *path, leaf = name.split(".")
-        layer = re.fullmatch(r"acoustic_model\.encoder\.layers\.(\d+)", ".".join(path[:4]))
+        layer = re.match(r"acoustic_model\.(encoder\.)?layers\.(\d+)\.", ".".join(path) + ".")
         if layer is not None:
-            index, path = int(layer.group(1)), path[4:]
+            index, path = int(layer.group(2)), path[4 if layer.group(1) else 3 :]
             if path[-1] == "qkv_proj":
                 for part, projection in zip(np.split(value, 3), ("q_proj", "k_proj", "v_proj")):
                     stack((*path[:-1], projection), leaf, part, index)
@@ -202,8 +247,9 @@ def jax_params_from_state(state: Mapping[str, Any], architecture: Wav2Vec2Archit
         else:
             key, converted = _jax_leaf(path[-1], leaf, value)
             _put(tree, (*path, key), converted)
+    stack_path = ("acoustic_model", "encoder", "layers") if isinstance(architecture, Wav2Vec2Architecture) else ("acoustic_model", "layers")
     for path, values in layers.items():
-        _put(tree, ("acoustic_model", "encoder", "layers", *path), np.stack(values))
+        _put(tree, (*stack_path, *path), np.stack(values))
     return tree
 
 

@@ -80,7 +80,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      seconds and the CLI's steady audio-s/s beside predict_decoded /
      predict_beam_decoded alone on the same batches;
  13. predict float32: a 2-layer full-width checkpoint through predict on the
-     card and with --cpu, greedy and at -b 4 -n 2, JSONL lines equal.
+     card and with --cpu, greedy and at -b 4 -n 2, JSONL lines equal;
+ 14. remat: the full-width training flagship with its encoder layers
+     rematerialised, at A = 2, B = 8 and at A = 1, B = 24 (the reference
+     recipe's microbatch), 10 s: step time, peak memory and launches (K5 and
+     K4 once a layer and microbatch, as without remat), twins forbidden;
+ 15. remat float32: a 4-layer full-width step with dropout on, with and
+     without remat from one DropoutRng seed: gradients within 1e-6 of each
+     leaf's largest, generators in the same state after;
+ 16. transformer: the from-scratch transformer (d_model 512, 8 heads of 64,
+     FFN 2048, 6 layers, 80 filterbanks) under the flagship's head: a
+     greedy "mixed" request and a dropout training step, launches counted,
+     twins forbidden; float32 greedy grids and a training step, card
+     against CPU;
+ 17. train CLI: ``allophant_tpu_torch.cli.run train`` on a Common Voice
+     corpus written with the port's codec (2 languages x 16 WAVs of 2-10 s,
+     4 dev clips each), the full-width flagship, ``-d -s DIR -w 2``, in a
+     child process (this script with --train-cli-child): SIGTERM after the
+     first statistics line (exit 0, interrupted.ckpt with optimizer state),
+     then --restore (picks interrupted.ckpt, resumes at the recorded batch,
+     reaches the last epoch); launches counted in each child, twins
+     forbidden; an MP3 round trip of one clip if the system libraries are
+     there.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -2083,7 +2104,514 @@ def phase_predict_float32(root: Path) -> None:
         check(len(lines["card"]) == len(lines["cpu"]) == 9 and differing == 0, f"float32 predict {name}: card and CPU lines differ")
 
 
+REMAT_BATCH, REMAT_STEPS = 24, 2
+
+
+def remat_step(model, config, accumulation: int, batch: int, label: str, results: dict) -> dict:
+    """REMAT_STEPS steps of make_train_step at A x B x 10 s on ``model``
+    (twins forbidden, launches counted and checked); returns the steady step
+    seconds, the peak memory and the launches of one step."""
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.training.train_step import build_freeze_plan, build_loss_plan, create_optimizer, make_train_step
+
+    optimizer = create_optimizer(config, model.architecture.hidden_size, model.parameters())
+    step = make_train_step(model, optimizer, build_loss_plan(config, True), build_freeze_plan(config.acoustic_model))
+    microbatches = training_microbatches(model, accumulation, batch, TRAIN_SECONDS * SAMPLE_RATE, "cuda")
+    rng = DropoutRng.from_seed(config.seed, "cuda")
+    layers = model.architecture.num_hidden_layers
+    expected = {
+        "oneshot_attention": 0,
+        "attention_dropout": accumulation * layers,
+        "attention_backward": accumulation * layers,
+        "dropout_mask": 0,
+        "frame_encoder": accumulation,
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = []
+    with TwinsForbidden():
+        for index in range(REMAT_STEPS):
+            start = time.perf_counter()
+            metrics, launches = counted(lambda: step(microbatches, rng))
+            seconds.append(time.perf_counter() - start)
+            for name, count in launches.items():
+                results[name] += count
+            check(launches == expected, f"{label} step {index}: launches {launches}, expected {expected}")
+            check(np.isfinite(metrics["mean_loss"]) and np.isfinite(metrics["grad_norm"]), f"{label}: non-finite metrics {metrics}")
+    peak = torch.cuda.max_memory_allocated()
+    del optimizer, step, microbatches
+    return {"seconds": seconds[-1], "first_seconds": seconds[0], "peak": peak, "launches": expected}
+
+
+def phase_remat(results: dict, step_seconds: float) -> None:
+    """Rematerialised training of the full-width flagship ("mixed"): A = 2,
+    B = 8, 10 s (the step phase's shape, which ran without remat) and the
+    reference recipe's microbatch, A = 1, B = 24, 10 s; step time (the last
+    of REMAT_STEPS), peak memory and launches a step (K5 and K4 once a layer
+    and microbatch: the attention's Function stays outside the recomputed
+    regions, so the backward does not rerun it)."""
+    from allophant_tpu_torch.demo import build_flagship_for_training
+
+    start = time.perf_counter()
+    config, model = build_flagship_for_training(seed=0, precision="mixed", device="cuda", remat=True)
+    print(f"remat: flagship built in {time.perf_counter() - start:.2f} s (remat, base save set)", flush=True)
+    for accumulation, batch in ((TRAIN_ACCUMULATION, TRAIN_BATCH), (1, REMAT_BATCH)):
+        reading = remat_step(model, config, accumulation, batch, f"remat A={accumulation} B={batch}", results)
+        audio_seconds = accumulation * batch * TRAIN_SECONDS
+        print(
+            f"remat step: A={accumulation} B={batch} {TRAIN_SECONDS} s ({audio_seconds} audio-s), remat on:"
+            f" {reading['seconds'] * 1e3:.1f} ms a step (first {reading['first_seconds'] * 1e3:.1f} ms),"
+            f" {audio_seconds / reading['seconds']:.1f} audio-s/s, peak memory {reading['peak'] / 2**30:.2f} GiB"
+            f" (max_memory_allocated); launches a step {reading['launches']}"
+            + (f"; without remat (step phase) {step_seconds * 1e3:.1f} ms a step" if batch == TRAIN_BATCH else ""),
+            flush=True,
+        )
+        torch.cuda.empty_cache()
+
+
+def phase_remat_float32() -> None:
+    """The same float32 step of a full-width 4-layer flagship with dropout on
+    (the flagship's rates), with and without remat, from one DropoutRng seed:
+    the gradients agree within 1e-6 of each leaf's largest (a recompute that
+    drew other dropout masks would differ by far more), and both runs leave
+    the generators in the same state. The step without remat runs twice, to
+    print the card's run-to-run floor beside the remat difference."""
+    from allophant_tpu_torch.demo import build_flagship_for_training
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.training.train_step import accumulate_gradients, build_loss_plan
+
+    architecture = dataclasses.replace(Wav2Vec2Architecture(), num_hidden_layers=4)
+    readings = {}
+    state = None
+    for remat in (False, True, False):
+        config, model = build_flagship_for_training(seed=1, architecture=architecture, precision="float32", device="cuda", remat=remat)
+        if state is None:
+            state = {key: value.clone() for key, value in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        microbatches = training_microbatches(model, 2, 2, 2 * SAMPLE_RATE, "cuda", seed=4)
+        rng = DropoutRng.from_seed(11, "cuda")
+        with TwinsForbidden():
+            metrics = accumulate_gradients(model, microbatches, build_loss_plan(config, True), rng).cpu()
+        gradients = {name: parameter.grad.detach().cpu() for name, parameter in model.named_parameters() if parameter.grad is not None}
+        readings.setdefault(remat, []).append((metrics, gradients, [generator_state.clone() for generator_state in rng.get_state()]))
+        del model
+    (plain_metrics, plain, plain_state), (_metrics, repeat, _state) = readings[False]
+    (remat_metrics, remat, remat_state), = readings[True]
+
+    def worst_share(gradients):
+        return max((gradients[name] - value).abs().max().item() / max(value.abs().max().item(), 1e-30) for name, value in plain.items())
+
+    share, floor = worst_share(remat), worst_share(repeat)
+    same_state = all(torch.equal(a, b) for a, b in zip(plain_state, remat_state))
+    print(
+        f"remat float32 (4 layers, A=2 B=2 2 s, dropout on): loss {remat_metrics[0].item():.6f} vs {plain_metrics[0].item():.6f}"
+        f" without remat; worst gradient difference {share:.3e} of its leaf's largest over {len(plain)} leaves"
+        f" (tolerance 1e-6; the same step without remat run twice: {floor:.3e}); generator states equal: {same_state}",
+        flush=True,
+    )
+    check(remat.keys() == plain.keys() and share <= 1e-6, "remat: gradients differ from the step without remat")
+    check(same_state, "remat: the dropout generators end in another state")
+
+
+TRANSFORMER_FEATURES, TRANSFORMER_BATCH, TRANSFORMER_FRAMES_PER_SECOND = 80, 8, 100
+
+
+def transformer_config_dict(dropout_rate: float) -> dict:
+    """The demo config with the from-scratch transformer as its acoustic
+    model: a linear frontend to d_model 512, 6 layers of 8 heads of 64, FFN
+    2048, on 80 log-mel filterbank features (no published width is in the
+    repo; this is a correctness check, not a measurement)."""
+    from allophant_tpu_torch.demo import demo_config_dict
+
+    config = demo_config_dict()
+    config["nn"]["acoustic_model"] = {
+        "type": "pre-ln-transformer",
+        "transformer": {"feedforward_neurons": 2048, "heads": 8, "num_layers": 6, "dropout_rate": dropout_rate},
+        "frontend": {"architecture": "linear", "neurons": 512},
+    }
+    config["preprocessing"] = {
+        "feature_type": "FILTERBANKS", "window": {"frame_duration": 25, "frame_stride": 10},
+        "resample": SAMPLE_RATE, "num_filters": TRANSFORMER_FEATURES,
+    }
+    config["nn"]["projection"]["acoustic_model_dropout"] = dropout_rate
+    return config
+
+
+def transformer_estimator(dropout_rate: float, precision: str, device):
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.demo import demo_indexer
+    from allophant_tpu_torch.models.allophant import attribute_graph_from_config
+    from allophant_tpu_torch.training.estimator import Estimator
+
+    config = Config.load(transformer_config_dict(dropout_rate))
+    indexer = demo_indexer(config)
+    return Estimator.from_config(
+        config, TRANSFORMER_FEATURES, SAMPLE_RATE, attribute_graph_from_config(config, indexer), indexer,
+        seed=4, precision=precision, device=device,
+    )
+
+
+def transformer_microbatches(model, accumulation: int, device, seed: int, seconds=(2, 10)) -> dict:
+    """training_microbatches with [A, B, T, 80] features of ``seconds`` (low,
+    high; 100 frames a second) in place of audio."""
+    rng = np.random.default_rng(seed)
+    low, high = (int(value * TRANSFORMER_FRAMES_PER_SECOND) for value in seconds)
+    lengths = rng.integers(low, high + 1, (accumulation, TRANSFORMER_BATCH))
+    frames = int(lengths.max())
+    arrays = training_microbatches(model, accumulation, TRANSFORMER_BATCH, 1, "cpu", seed=seed)
+    arrays["audio"] = torch.from_numpy(rng.standard_normal((accumulation, TRANSFORMER_BATCH, frames, TRANSFORMER_FEATURES)).astype(np.float32))
+    arrays["lengths"] = torch.from_numpy(lengths)
+    return {key: value.to(device) for key, value in arrays.items()}
+
+
+def phase_transformer(results: dict) -> None:
+    """The from-scratch transformer acoustic model (transformer_config_dict)
+    under the flagship's head, on 8 feature sequences of 2-10 s: a greedy
+    "mixed" request and a "mixed" training step with dropout 0.1 (twins
+    forbidden, launches counted: K1 once a layer when serving, K5 and K4 once
+    a layer and microbatch when training); then, in "float32" with dropout
+    off, greedy serving on the card against the CPU (grids equal) and one
+    training step on 1-2 s sequences (metrics within 1e-4, gradients within
+    GRAD_SHARE of each leaf's largest; over longer sequences the CPU's f32
+    CTC gradient drifts from the exact one by more than that)."""
+    from allophant_tpu_torch.data.batch import Batch
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.training.train_step import build_freeze_plan, build_loss_plan, create_optimizer, make_train_step
+
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(2 * TRANSFORMER_FRAMES_PER_SECOND, 10 * TRANSFORMER_FRAMES_PER_SECOND + 1, TRANSFORMER_BATCH)
+    features = rng.standard_normal((TRANSFORMER_BATCH, int(lengths.max()), TRANSFORMER_FEATURES)).astype(np.float32)
+    batch = Batch(features, lengths, np.arange(TRANSFORMER_BATCH) % 4)
+
+    estimator = transformer_estimator(0.1, "mixed", "cuda")
+    model = estimator.model
+    layers = model.architecture.num_hidden_layers
+    heads = tuple(sorted(model.classes))
+    with TwinsForbidden():
+        (grid, frame_lengths), launches = counted(lambda: estimator.predict_decoded(batch, heads=heads))
+    for name, count in launches.items():
+        results[name] += count
+    expected = {"oneshot_attention": layers, "attention_dropout": 0, "attention_backward": 0, "dropout_mask": 0, "frame_encoder": 0}
+    check(launches == expected, f"transformer serve: launches {launches}, expected {expected}")
+    check(np.array_equal(frame_lengths.cpu().numpy(), lengths), "transformer serve: frame lengths changed")
+    print(
+        f"transformer (d_model {model.architecture.hidden_size}, {layers} layers, 8 heads of 64, FFN 2048, 80 filterbanks), mixed:"
+        f" greedy request of {TRANSFORMER_BATCH} x {lengths.min()}-{lengths.max()} frames, grid {tuple(grid.shape)}, launches {launches}",
+        flush=True,
+    )
+    config = estimator.config.nn
+    optimizer = create_optimizer(config, model.architecture.hidden_size, model.parameters())
+    step = make_train_step(model, optimizer, build_loss_plan(config, True), build_freeze_plan(config.acoustic_model))
+    microbatches = transformer_microbatches(model, TRAIN_ACCUMULATION, "cuda", seed=5)
+    with TwinsForbidden():
+        metrics, launches = counted(lambda: step(microbatches, DropoutRng.from_seed(3, "cuda")))
+    for name, count in launches.items():
+        results[name] += count
+    expected = {
+        "oneshot_attention": 0,
+        "attention_dropout": TRAIN_ACCUMULATION * layers,
+        "attention_backward": TRAIN_ACCUMULATION * layers,
+        "dropout_mask": 0,
+        "frame_encoder": 0,
+    }
+    check(launches == expected, f"transformer train step: launches {launches}, expected {expected}")
+    check(np.isfinite(metrics["mean_loss"]) and np.isfinite(metrics["grad_norm"]), f"transformer train step: {metrics}")
+    print(
+        f"transformer train step (mixed, dropout 0.1, A={TRAIN_ACCUMULATION} B={TRANSFORMER_BATCH}): mean_loss"
+        f" {metrics['mean_loss']:.6f}, grad_norm {metrics['grad_norm']:.6f}, launches {launches}",
+        flush=True,
+    )
+    del estimator, model, optimizer, step, microbatches
+    torch.cuda.empty_cache()
+
+    card = transformer_estimator(0.0, "float32", "cuda")
+    cpu = transformer_estimator(0.0, "float32", "cpu")
+    cpu.model.load_state_dict({key: value.cpu() for key, value in card.model.state_dict().items()})
+    grids = [estimator.predict_decoded(batch, heads=heads)[0].cpu().to(torch.int32) for estimator in (card, cpu)]
+    mismatched = int((grids[0] != grids[1]).sum().item())
+    readings = {}
+    for label, estimator, device in (("card", card, "cuda"), ("cpu", cpu, "cpu")):
+        config = estimator.config.nn
+        optimizer = create_optimizer(config, estimator.model.architecture.hidden_size, estimator.model.parameters())
+        step = make_train_step(estimator.model, optimizer, build_loss_plan(config, True), build_freeze_plan(config.acoustic_model))
+        with TwinsForbidden() if device == "cuda" else contextlib.nullcontext():
+            metrics, launches = counted(lambda: step(transformer_microbatches(estimator.model, 1, device, seed=6, seconds=(1, 2)), None))
+        gradients = {name: parameter.grad.detach().cpu() for name, parameter in estimator.model.named_parameters()}
+        readings[label] = (metrics, gradients, launches)
+    (card_metrics, card_grads, card_launches), (cpu_metrics, cpu_grads, _) = readings["card"], readings["cpu"]
+    for name, count in card_launches.items():
+        results[name] += count
+    relative = {key: abs(card_metrics[key] - cpu_metrics[key]) / abs(cpu_metrics[key]) for key in ("mean_loss", "grad_norm")}
+    floor = ZERO_FLOOR * max(value.abs().max().item() for value in cpu_grads.values())
+    grad_share = max(
+        (card_grads[name] - value).abs().max().item() / max(value.abs().max().item(), floor / GRAD_SHARE)
+        for name, value in cpu_grads.items()
+    )
+    print(
+        f"transformer float32 card vs cpu: greedy grid {tuple(grids[0].shape)} cells differing {mismatched};"
+        f" train step (A=1 B={TRANSFORMER_BATCH}) mean_loss {card_metrics['mean_loss']:.6f} vs {cpu_metrics['mean_loss']:.6f},"
+        f" on 1-2 s, relative differences {relative} (tolerance 1e-4), worst gradient difference {grad_share:.3e} of its leaf's"
+        f" largest (tolerance {GRAD_SHARE:.0e}); card launches {card_launches}",
+        flush=True,
+    )
+    check(mismatched == 0, "transformer float32: card and CPU grids differ")
+    check(all(value <= 1e-4 for value in relative.values()) and grad_share <= GRAD_SHARE, "transformer float32: card and CPU steps disagree")
+    check(card_launches["oneshot_attention"] == layers and card_launches["attention_backward"] == layers, f"transformer float32 launches {card_launches}")
+
+
+CLI_LANGUAGES = ("es", "it")
+CLI_CLIPS = {"train": 16, "dev": 4, "test": 1}
+CLI_EPOCHS = 3
+CHILD_FLAG = "--train-cli-child"
+
+
+def write_common_voice_corpus(root: Path, inventories: dict, seconds: tuple, seed: int) -> Path:
+    """A Common Voice corpus under ``root`` written with the port's codec:
+    per split of CLI_CLIPS and language of ``inventories`` (code -> phoneme
+    list), 16-bit WAV clips of seeded noise ``seconds`` (low, high) long
+    under ``<language>/clips``, each transcribed with 5-30 seeded phonemes of
+    the inventory, and the split's ``*_transcriptions.bin`` and
+    ``*_inventories.json``."""
+    import wave
+
+    from allophant_tpu_torch.data.common_voice import CommonVoiceCorpus, CommonVoiceCorpusMeta, Transcription
+    from allophant_tpu_torch.data.g2p import PhonemeTranscription, TaggedTranscription
+    from allophant_tpu_torch.data.speech_corpus import LanguageData, LanguageInfo
+
+    rng = np.random.default_rng(seed)
+    for split, count in CLI_CLIPS.items():
+        languages = []
+        for language, phonemes in inventories.items():
+            clips = root / language / "clips"
+            clips.mkdir(parents=True, exist_ok=True)
+            transcriptions = []
+            for index in range(count):
+                utterance = f"{language}_{split}_{index}"
+                sequence = [str(phoneme) for phoneme in rng.choice(phonemes, int(rng.integers(5, 31)))]
+                transcriptions.append(
+                    Transcription(
+                        "noise", utterance, "client", None, None, None,
+                        PhonemeTranscription(["noise"], [[TaggedTranscription(sequence)]]),
+                    )
+                )
+                samples = int(rng.uniform(*seconds) * SAMPLE_RATE)
+                audio = (np.clip(0.1 * rng.standard_normal(samples), -1, 1) * 32767).astype("<i2")
+                with wave.open(str(clips / f"{utterance}.wav"), "wb") as file:
+                    file.setnchannels(1)
+                    file.setsampwidth(2)
+                    file.setframerate(SAMPLE_RATE)
+                    file.writeframes(audio.tobytes())
+            languages.append(LanguageData(LanguageInfo(language, sorted(phonemes), [{}]), transcriptions))
+        CommonVoiceCorpus(str(root), languages, CommonVoiceCorpusMeta("cv-smoke", audio_format="wav")).save(str(root), split)
+    return root
+
+
+def train_cli_child(arguments: list) -> int:
+    """The child of the train CLI phase: runs ``allophant_tpu_torch.cli.run
+    main(arguments)`` in this process (its own signal handlers), with the
+    plain twins forbidden on the card, then prints one JSON line: the
+    launches of each counted kernel, the seconds of each ``Estimator.save``
+    and of ``Estimator.restore``."""
+    import logging
+
+    sys.path.insert(0, str(HERE))
+    from allophant_tpu_torch.cli.run import main as cli_main
+    from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
+    from allophant_tpu_torch.training.estimator import Estimator
+
+    warnings.simplefilter("ignore", SingletonFeatureWarning)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(name)s %(message)s")
+    saves, restores = [], []
+    save, restore = Estimator.save, Estimator.restore.__func__
+
+    def timed_save(self, path, *args, **kwargs):
+        start = time.perf_counter()
+        save(self, path, *args, **kwargs)
+        saves.append([os.path.basename(path), time.perf_counter() - start])
+
+    def timed_restore(cls, *args, **kwargs):
+        start = time.perf_counter()
+        value = restore(cls, *args, **kwargs)
+        restores.append(time.perf_counter() - start)
+        return value
+
+    Estimator.save, Estimator.restore = timed_save, classmethod(timed_restore)
+    on_cpu = "--cpu" in arguments
+    counters = kernel_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    with contextlib.nullcontext() if on_cpu else TwinsForbidden():
+        cli_main(arguments)
+    if not on_cpu:
+        torch.cuda.synchronize()
+    report = {"launches": {name: counter.launches for name, counter in counters.items()}, "saves": saves, "restores": restores}
+    print("train-cli-child " + json.dumps(report), flush=True)
+    return 0
+
+
+def run_train_cli(arguments: list, log: Path, interrupt: bool, timeout: float):
+    """Runs the train CLI in a child process (``chip_smoke.py CHILD_FLAG
+    ...``); with ``interrupt``, sends SIGTERM once its first statistics line
+    ("epoch N step M: ...") is out. Returns (exit code, stdout lines, the
+    child's report, seconds from the signal to the exit or None)."""
+    import signal
+
+    command = [sys.executable, str(HERE / "chip_smoke.py"), CHILD_FLAG, *arguments]
+    lines, signalled = [], None
+    with open(log, "w", encoding="utf-8") as errors:
+        process = subprocess.Popen(command, stdout=subprocess.PIPE, stderr=errors, text=True, cwd=str(HERE))
+        deadline = time.perf_counter() + timeout
+        try:
+            for line in process.stdout:
+                lines.append(line.rstrip("\n"))
+                if interrupt and signalled is None and re.match(r"epoch \d+ step \d+:", line):
+                    process.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter()
+                check(time.perf_counter() < deadline, f"train CLI child ran past {timeout} s")
+            code = process.wait(timeout=max(deadline - time.perf_counter(), 1))
+        finally:
+            if process.poll() is None:
+                process.kill()
+                process.wait()
+    reports = [json.loads(line.split(" ", 1)[1]) for line in lines if line.startswith("train-cli-child ")]
+    stopped = None if signalled is None else time.perf_counter() - signalled
+    return code, lines, reports[0] if reports else None, stopped
+
+
+def phase_train_cli(results: dict, root: Path) -> None:
+    """``allophant_tpu_torch.cli.run train`` on a Common Voice corpus, as a
+    user runs it, in child processes so that the signal, the handlers and the
+    exit code are real: the full-width flagship from the demo config
+    (microbatches of at most 8 x 10 s at A = 2, validation at each epoch's
+    end, CLI_EPOCHS epochs), the demo table, a corpus of 2
+    languages x 16 WAV clips of 2-10 s plus 4 dev clips each, ``-d -s DIR -w 2``.
+    SIGTERM after the first statistics line: exit 0 and ``interrupted.ckpt``
+    with optimizer state. Then ``--restore``: it picks ``interrupted.ckpt``,
+    resumes at the recorded batch and reaches the last epoch, ending at the
+    step count of an uninterrupted run. Launches are counted in each child,
+    twins forbidden. If the system MP3 libraries are present, one clip is
+    encoded, decoded and compared with its WAV."""
+    from allophant_tpu_torch.demo import demo_config_dict, demo_feature_table_csv
+    from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    start = time.perf_counter()
+    table = PhoneticAttributeIndexer("phoible", demo_feature_table_csv())
+    corpus = write_common_voice_corpus(
+        root / "cv", {language: table.phoneme_inventory(language) for language in CLI_LANGUAGES}, (2, 10), seed=7
+    )
+    table_path = root / "table.csv"
+    table_path.write_text(demo_feature_table_csv(), encoding="utf-8")
+    config = demo_config_dict()
+    # Microbatches of TRAIN_BATCH clips of at most 10 s: 2 steps an epoch.
+    config["nn"].update(
+        batching_mode="utterances",
+        batch_size=TRAIN_ACCUMULATION * TRAIN_BATCH,
+        accumulation_factor=TRAIN_ACCUMULATION,
+        maximum_iterations=CLI_EPOCHS,
+    )
+    config["data"]["languages"] = list(CLI_LANGUAGES)
+    save_path = root / "checkpoints"
+    arguments = [
+        "train", str(corpus), "-t", "common-voice", "-j", json.dumps(config), "-a", str(table_path),
+        "-d", "-s", str(save_path), "-w", "2",
+    ]
+    print(f"train CLI: corpus of {sum(CLI_CLIPS.values()) * len(CLI_LANGUAGES)} WAV clips written in {time.perf_counter() - start:.2f} s", flush=True)
+    phase_mp3(corpus / CLI_LANGUAGES[0] / "clips" / f"{CLI_LANGUAGES[0]}_train_0.wav")
+
+    readings = []
+    for interrupt in (True, False):
+        run_arguments = arguments if interrupt else [*arguments, "--restore"]
+        started = time.perf_counter()
+        code, lines, report, stopped = run_train_cli(run_arguments, root / f"train_cli_{len(readings)}.log", interrupt, timeout=900)
+        wall = time.perf_counter() - started
+        log = (root / f"train_cli_{len(readings)}.log").read_text(encoding="utf-8", errors="replace")
+        statistics = [line for line in lines if re.match(r"epoch \d+ step \d+:", line)]
+        if code != 0 or report is None:
+            print(log[-4000:], flush=True)
+        check(code == 0 and report is not None, f"train CLI run {len(readings) + 1}: exit code {code}")
+        readings.append((lines, report, statistics, wall, stopped, log))
+        for name, count in report["launches"].items():
+            results[name] += count
+        print(
+            f"train CLI run {len(readings)} ({'SIGTERM after the first statistics line' if interrupt else '--restore'}):"
+            f" exit {code} in {wall:.1f} s{'' if stopped is None else f' ({stopped:.1f} s from the signal to the exit)'};"
+            f" statistics {statistics}; launches {report['launches']}; saves {report['saves']}; restores {report['restores']}",
+            flush=True,
+        )
+
+    interrupted_path = save_path / "interrupted.ckpt"
+    check(interrupted_path.exists(), "train CLI: no interrupted.ckpt after SIGTERM")
+    interrupted = load_checkpoint(str(interrupted_path))
+    check(bool(interrupted.optimizer_state), "train CLI: interrupted.ckpt has no optimizer state")
+    final = load_checkpoint(str(save_path / f"epoch-{CLI_EPOCHS}.ckpt"))
+    (_lines, first, first_statistics, _w, _s, _log), (_lines2, second, second_statistics, _w2, _s2, second_log) = readings
+    check(any(line.endswith(str(interrupted_path)) and "Restoring from" in line for line in second_log.splitlines()),
+          "train CLI: --restore did not pick interrupted.ckpt")
+    check("Training interrupted" in "\n".join(_lines), "train CLI: the first run did not report its interrupted save")
+    steps_first, steps_second = int(interrupted.epoch.global_step), int(final.epoch.global_step) - int(interrupted.epoch.global_step)
+    # One uninterrupted epoch's steps, from the first run's epoch-1 statistics line.
+    per_epoch = int(re.match(r"epoch \d+ step (\d+):", first_statistics[0]).group(1))
+    check(int(final.epoch.epoch) == CLI_EPOCHS and int(final.epoch.global_step) == CLI_EPOCHS * per_epoch,
+          f"train CLI: resumed run ended at {final.epoch}, expected {CLI_EPOCHS} epochs of {per_epoch} steps")
+    check(int(interrupted.epoch.step) > 0 and int(interrupted.epoch.epoch) == 1, f"train CLI: interrupted at {interrupted.epoch}")
+    layers = 24
+    for label, report, steps in (("first", first, steps_first), ("second", second, steps_second)):
+        launches = report["launches"]
+        validation_batches = launches["frame_encoder"] - TRAIN_ACCUMULATION * steps
+        expected = {
+            "oneshot_attention": layers * validation_batches,
+            "attention_dropout": TRAIN_ACCUMULATION * layers * steps,
+            "attention_backward": TRAIN_ACCUMULATION * layers * steps,
+            "dropout_mask": 0,
+            "frame_encoder": TRAIN_ACCUMULATION * steps + validation_batches,
+        }
+        check(validation_batches > 0 and launches == expected, f"train CLI {label} run: launches {launches}, expected {expected}")
+    print(
+        f"train CLI: interrupted at {interrupted.epoch} with {len(interrupted.optimizer_state)} bytes of optimizer state;"
+        f" resumed to {final.epoch}; {per_epoch} steps an epoch; steps {steps_first} + {steps_second}",
+        flush=True,
+    )
+
+
+def phase_mp3(wav: Path) -> None:
+    """Encodes one WAV clip to MP3 and decodes it with the system libraries
+    (libmp3lame, libmpg123) if this machine has them, and compares the two:
+    the decoded clip, aligned by its encoder delay, at an SNR of at least
+    6 dB (white noise is MP3's worst case, about 10 dB at 128 kbit/s; a
+    decode at the wrong rate or layout gives about 0 dB)."""
+    from allophant_tpu_torch.data.audio import load_audio
+    from allophant_tpu_torch.native import audio_codecs
+
+    if not (audio_codecs.LAME_AVAILABLE and audio_codecs.MPG123_AVAILABLE):
+        print(
+            f"mp3: skipped, libmp3lame found: {audio_codecs.LAME_AVAILABLE}, libmpg123 found:"
+            f" {audio_codecs.MPG123_AVAILABLE}",
+            flush=True,
+        )
+        return
+    original, rate = load_audio(str(wav))
+    original = original[0]
+    path = wav.with_suffix(".mp3")
+    audio_codecs.encode_mp3(str(path), original, rate)
+    decoded, decoded_rate = audio_codecs.decode_mp3(str(path))
+    decoded = decoded[0]
+    # The encoder delays and pads the clip: align by the best lag.
+    window = min(len(original), len(decoded))
+    lags = range(0, max(len(decoded) - window, 0) + 1)
+    delay = max(lags, key=lambda lag: float(np.dot(original[:window], decoded[lag : lag + window])))
+    aligned = decoded[delay : delay + len(original)]
+    count = min(len(aligned), len(original))
+    snr = 10 * np.log10(np.sum(original[:count] ** 2) / np.sum((original[:count] - aligned[:count]) ** 2))
+    print(f"mp3: {len(original)} samples encoded and decoded at {decoded_rate} Hz, delay {delay}, SNR {snr:.1f} dB", flush=True)
+    check(decoded_rate == rate and snr >= 6, "mp3: the decoded clip differs from its WAV")
+
+
 def main() -> int:
+    if sys.argv[1:2] == [CHILD_FLAG]:
+        return train_cli_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2135,6 +2663,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_float32()
     torch.cuda.empty_cache()
+    phase_remat(launches, step_seconds)
+    torch.cuda.empty_cache()
+    phase_remat_float32()
+    torch.cuda.empty_cache()
+    phase_transformer(launches)
+    torch.cuda.empty_cache()
     from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
 
     # The demo table's one-valued "tone" column is structural: each indexer
@@ -2150,6 +2684,8 @@ def main() -> int:
         del master_params
         torch.cuda.empty_cache()
         phase_predict_float32(root)
+        torch.cuda.empty_cache()
+        phase_train_cli(launches, root)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

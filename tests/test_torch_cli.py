@@ -233,11 +233,20 @@ def test_language_phonemes_on_a_composition_model_keep_the_training_phones(workd
 
 
 def test_n_best_larger_than_beam_and_worker_processes_are_rejected(workdir, tmp_path):
-    arguments = [str(workdir / "corpus"), str(workdir / "shared.ckpt"), "--cpu", "--no-progress"]
+    """``-n`` above ``-b`` is rejected. Worker processes (``-w N``) were
+    rejected until the port's Batcher had them; now ``-w 2`` must write the
+    same JSONL as ``-w 0`` (the name is kept from that time)."""
+    arguments = [str(workdir / "corpus"), str(workdir / "shared.ckpt"), *PREDICT]
     with pytest.raises(ValueError, match="larger than the beam"):
         cli.main(["predict", *arguments, "-b", "2", "-n", "4", "-o", str(tmp_path / "x.jsonl")])
-    with tiny_encoder_restore(), pytest.raises(ValueError, match="data_workers"):
-        cli.main(["predict", *arguments, "-w", "1", "-o", str(tmp_path / "y.jsonl")])
+    outputs = {}
+    with tiny_encoder_restore():
+        for workers in ("0", "2"):
+            path = tmp_path / f"w{workers}.jsonl"
+            cli.main(["predict", *arguments, "-w", workers, "-o", str(path)])
+            outputs[workers] = path.read_text(encoding="utf-8").splitlines()
+    # The first line is the metadata, which records the arguments.
+    assert len(outputs["0"]) == 5 and outputs["2"][1:] == outputs["0"][1:]
 
 
 def test_predict_runs_on_the_card_unless_asked_for_the_cpu(workdir, tmp_path, monkeypatch):

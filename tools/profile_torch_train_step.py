@@ -2,17 +2,22 @@
 PyTorch port's counterpart of ``tools/bench_train_step.py``.
 
     python3 tools/profile_torch_train_step.py [--steps N] [--trace-dir DIR]
+        [--accumulation A] [--batch B] [--remat]
 
 Builds the full-width training flagship (XLS-R 300M + the 37-head
 hierarchical head, "mixed": bf16 encoder, f32 head, f32 master weights; the
 flagship's dropout, Adam, warmup schedule, clipping and frozen feature
 extractor), takes two warm-up steps through ``make_train_step`` at A = 2,
-B = 8, 10 s (chip_smoke.py's training microbatches), then profiles ``--steps``
-steps under torch.profiler and prints: the card's name and power limit, the
-wall time per step and audio-s/s, the device time per step by group (K4, K5,
-GEMMs, elementwise, CTC, optimizer, ...) and the top kernels, the device's
-idle share (1 - summed kernel time / wall time; one stream, so kernels do not
-overlap) and the peak memory. Needs a CUDA device."""
+B = 8, 10 s (chip_smoke.py's training microbatches; ``--accumulation`` and
+``--batch`` change A and B, ``--remat`` rematerialises the encoder layers),
+then profiles ``--steps`` steps under torch.profiler and prints: the card's
+name and power limit, the warm-up steps' wall times (no profiler), the wall
+time per profiled step and audio-s/s, the device time
+per step by group (K4, K5, GEMMs, elementwise, CTC, optimizer, ...) and the
+top kernels, the device's idle share (1 - summed kernel time / wall time; one
+stream, so kernels do not overlap) and the peak memory. A step that does not
+fit the card's memory prints the peak reached and exits 2. Needs a CUDA
+device."""
 
 from __future__ import annotations
 
@@ -64,6 +69,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=2, help="profiled steps, after two warm-up steps")
     parser.add_argument("--trace-dir", default=str(ROOT / "profiles"), help="where the Chrome trace is written")
+    parser.add_argument("--accumulation", type=int, default=None, help="microbatches a step (default chip_smoke's 2)")
+    parser.add_argument("--batch", type=int, default=None, help="utterances of 10 s a microbatch (default chip_smoke's 8)")
+    parser.add_argument("--remat", action="store_true", help="rematerialise the encoder layers")
     args = parser.parse_args()
 
     import torch
@@ -82,19 +90,35 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(card)
-    config, model = build_flagship_for_training(seed=0, precision="mixed", device="cuda")
+    config, model = build_flagship_for_training(seed=0, precision="mixed", device="cuda", remat=args.remat)
     optimizer = create_optimizer(config, model.architecture.hidden_size, model.parameters())
     step = make_train_step(
         model, optimizer, build_loss_plan(config, True), build_freeze_plan(config.acoustic_model)
     )
-    accumulation, batch, seconds = chip_smoke.TRAIN_ACCUMULATION, chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SECONDS
+    accumulation = chip_smoke.TRAIN_ACCUMULATION if args.accumulation is None else args.accumulation
+    batch = chip_smoke.TRAIN_BATCH if args.batch is None else args.batch
+    seconds = chip_smoke.TRAIN_SECONDS
     microbatches = chip_smoke.training_microbatches(model, accumulation, batch, seconds * chip_smoke.SAMPLE_RATE, "cuda")
     rng = DropoutRng.from_seed(config.seed, "cuda")
-    print(f"training step: A={accumulation} B={batch} {seconds} s, {model.architecture.num_hidden_layers} layers, mixed")
+    print(
+        f"training step: A={accumulation} B={batch} {seconds} s, {model.architecture.num_hidden_layers} layers, mixed,"
+        f" remat {'on' if args.remat else 'off'}"
+    )
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(2):
-        step(microbatches, rng)
-    torch.cuda.synchronize()
+    warm_up = []
+    try:
+        for _ in range(2):
+            start = time.perf_counter()
+            step(microbatches, rng)
+            torch.cuda.synchronize()
+            warm_up.append((time.perf_counter() - start) * 1e3)
+    except torch.cuda.OutOfMemoryError as error:
+        print(
+            f"out of memory: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated of"
+            f" {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB ({str(error).splitlines()[0]})"
+        )
+        return 2
+    print(f"warm-up steps without the profiler: {', '.join(f'{milliseconds:.3f}' for milliseconds in warm_up)} ms")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as profiler:
         start = time.perf_counter()
