@@ -7,7 +7,14 @@ train, generate-config, predict, evaluate and edits, with the JAX CLI's flags.
 
 Training, inference and the device scorer run on the GPU; ``--cpu`` runs
 them on the CPU instead (the plain PyTorch path), as the JAX CLI's ``--cpu``
-selects its CPU backend. ``export`` is not ported yet."""
+selects its CPU backend. ``export`` is not ported yet.
+
+``train`` trains data-parallel over every visible GPU, as the JAX CLI trains
+over every visible chip: started by ``torchrun`` it joins the process group
+of its environment (one process a GPU; with ``--cpu``, gloo processes on the
+CPU); started plainly with more than one visible GPU it starts one process a
+GPU itself and forwards SIGTERM and SIGINT to them. ``CUDA_VISIBLE_DEVICES``
+chooses the GPUs."""
 
 from __future__ import annotations
 
@@ -102,10 +109,70 @@ def _prefer_interrupted_checkpoint(candidate: str, save_path: str) -> str:
     return interrupted if os.path.getmtime(interrupted) >= os.path.getmtime(candidate) else candidate
 
 
-def train_network(arguments: Namespace) -> None:
+def train(arguments: Namespace, args: Sequence[str]) -> None:
+    """``train`` on one device, or data-parallel over several: in the process
+    group of a ``torchrun`` environment, or over every visible GPU in one
+    spawned process each (``args`` are the command line, parsed again in
+    each)."""
+    from allophant_tpu_torch.parallel import mesh as mesh_module
+
+    if mesh_module.torchrun_environment():
+        import torch.distributed as dist
+
+        device = mesh_module.rank_device(_device(arguments))
+        mesh_module.initialize(device)
+        try:
+            train_network(arguments, mesh_module.create_mesh(), device)
+        finally:
+            dist.destroy_process_group()
+        return
+    if not arguments.cpu:
+        import torch
+
+        count = torch.cuda.device_count()
+        if count > 1:
+            train_on_devices(args, [f"cuda:{index}" for index in range(count)])
+            return
+    train_network(arguments)
+
+
+def _train_rank(_rank: int, _world_size: int, device, args: Sequence[str]) -> None:
+    """One spawned rank of ``train_on_devices``."""
+    from allophant_tpu_torch.parallel.mesh import create_mesh
+
+    arguments = make_parser().parse_args(args)
+    if arguments.detect_anomaly:
+        import torch
+
+        torch.autograd.set_detect_anomaly(True)
+    train_network(arguments, create_mesh(), device)
+
+
+def train_on_devices(args: Sequence[str], devices: Sequence[str]) -> None:
+    """Trains data-parallel in one spawned process for each of ``devices``
+    (``parallel.launch.spawn``), the command line ``args`` parsed in each;
+    SIGTERM and SIGINT sent to this process reach every rank. The kernels are
+    built here first, so that the ranks find them built."""
+    import tempfile
+
+    import torch
+
+    from allophant_tpu_torch.parallel import launch
+
+    if any(torch.device(device).type == "cuda" for device in devices):
+        from allophant_tpu_torch.kernels.build import build_all
+
+        build_all()
+    with tempfile.TemporaryDirectory() as workdir:
+        launch.spawn(_train_rank, workdir, devices, (list(args),), forward_signals=True)
+
+
+def train_network(arguments: Namespace, mesh=None, device=None) -> None:
     """Runs the training loop: restore or build, iterate ``Estimator.train``,
     checkpoint on improvement, and on SIGTERM or SIGINT stop after the
-    in-flight step and write the interrupted checkpoint."""
+    in-flight step and write the interrupted checkpoint. Over a ``mesh`` (this
+    process's rank on ``device``) every rank runs it; the first rank prints
+    and writes the checkpoints."""
     from allophant_tpu_torch.data import corpus_loading
     from allophant_tpu_torch.device import resolve_device
     from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
@@ -114,7 +181,8 @@ def train_network(arguments: Namespace) -> None:
     from allophant_tpu_torch.training.run import DatasetManager, TrainingStatus
 
     # Raises now, before the corpus is read, when there is no card and no --cpu.
-    device = resolve_device(_device(arguments))
+    device = resolve_device(_device(arguments) if device is None else device)
+    first = mesh is None or mesh.index == 0
     restore_path = arguments.save_path if arguments.restore else None
     checkpoint = None
     if restore_path is not None:
@@ -138,7 +206,7 @@ def train_network(arguments: Namespace) -> None:
         config.data.languages,
         config.data.validation_limits,
         config.data.only_primary_script,
-        not arguments.no_progress,
+        first and not arguments.no_progress,
     )
 
     train_lengths = validation_lengths = None
@@ -159,7 +227,9 @@ def train_network(arguments: Namespace) -> None:
     # precision is on, full float32 when off.
     precision = "mixed" if config.nn.mixed_precision else "float32"
     if checkpoint is not None:
-        estimator, attribute_indexer = Estimator.restore(checkpoint, remat=True, precision=precision, device=device)
+        estimator, attribute_indexer = Estimator.restore(
+            checkpoint, remat=True, precision=precision, device=device, mesh=mesh
+        )
     else:
         attribute_table = arguments.attribute_path.read() if arguments.attribute_path else None
         attribute_indexer = PhoneticAttributeIndexer.from_config(
@@ -188,11 +258,14 @@ def train_network(arguments: Namespace) -> None:
             precision=precision,
             device=device,
             remat=True,
+            mesh=mesh,
         )
 
     tensorboard_directory = arguments.tensorboard_directory
     if tensorboard_directory == "":
         tensorboard_directory = os.path.join("runs", "allophant")
+    if not first:
+        tensorboard_directory = None
 
     skip_batches = arguments.skip_batches
     if skip_batches < 0:
@@ -200,7 +273,7 @@ def train_network(arguments: Namespace) -> None:
         # consumed (recorded at every validation point).
         skip_batches = int(estimator.epoch.step or 0) if arguments.restore else 0
 
-    run = estimator.train(manager, tensorboard_directory, skip_batches=skip_batches, show_progress=not arguments.no_progress)
+    run = estimator.train(manager, tensorboard_directory, skip_batches=skip_batches, show_progress=first and not arguments.no_progress)
 
     # Graceful preemption: SIGTERM/SIGINT ask the loop to stop at the next step
     # boundary, after which the INTERRUPTED branch below checkpoints the full
@@ -220,9 +293,10 @@ def train_network(arguments: Namespace) -> None:
         original_handlers[signum] = signal.signal(signum, _graceful_stop)
     try:
         for status, statistics in run:
-            MAIN_LOGGER.info("%s", statistics)
-            if not arguments.no_progress:
-                print(statistics, flush=True)
+            if first:
+                MAIN_LOGGER.info("%s", statistics)
+                if not arguments.no_progress:
+                    print(statistics, flush=True)
             if arguments.save_path is not None and status not in (
                 TrainingStatus.FINISHED,
                 TrainingStatus.EARLY_STOPPED,
@@ -232,17 +306,18 @@ def train_network(arguments: Namespace) -> None:
                 if status == TrainingStatus.INTERRUPTED:
                     interrupted_path = _interrupted_checkpoint_path(arguments.save_path)
                     estimator.save(interrupted_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state)
-                    print(f"Training interrupted; state saved to {interrupted_path}", flush=True)
+                    if first:
+                        print(f"Training interrupted; state saved to {interrupted_path}", flush=True)
                 elif arguments.save_all:
                     epoch_path = os.path.join(arguments.save_path, _checkpoint_name(statistics.epoch))
                     estimator.save(epoch_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state)
-                    if status == TrainingStatus.IMPROVED:
+                    if status == TrainingStatus.IMPROVED and first:
                         shutil.copy2(epoch_path, os.path.join(arguments.save_path, BEST_CHECKPOINT))
                 elif status == TrainingStatus.IMPROVED:
                     estimator.save(
                         arguments.save_path, optimizer_state=training_state, phonetic_indexer_state=indexer_state
                     )
-            if status == TrainingStatus.EARLY_STOPPED and not arguments.no_progress:
+            if status == TrainingStatus.EARLY_STOPPED and not arguments.no_progress and first:
                 print("Training stopped early", flush=True)
     finally:
         for signum, handler in original_handlers.items():
@@ -860,7 +935,8 @@ def make_parser() -> ArgumentParser:
 
 
 def main(args: Sequence[str] | None = None) -> None:
-    arguments = make_parser().parse_args(sys.argv[1:] if args is None else args)
+    args = sys.argv[1:] if args is None else list(args)
+    arguments = make_parser().parse_args(args)
     if arguments.mode == "generate-config":
         generate_config(arguments)
     elif arguments.mode == "train":
@@ -868,7 +944,7 @@ def main(args: Sequence[str] | None = None) -> None:
             import torch
 
             torch.autograd.set_detect_anomaly(True)
-        train_network(arguments)
+        train(arguments, args)
     elif arguments.mode == "evaluate":
         evaluate(arguments)
     elif arguments.mode == "predict":

@@ -278,11 +278,13 @@ def build_batch(
     return LabeledBatch(audio, lengths, language_ids, attribute_indices, label_lengths)
 
 
-# Worker-process state for process-pool batch building, set once per worker by
-# ``_pool_worker_init`` (inherited by fork, so the dataset is never pickled —
-# the process-based counterpart of the reference's DataLoader workers,
-# reference batching.py:302-311).
+# Worker-process state for batch building in worker processes, set once per
+# worker by ``_pool_worker_init`` (inherited by fork, so the dataset is never
+# pickled — the process-based counterpart of the reference's DataLoader
+# workers, reference batching.py:302-311).
 _POOL_STATE: dict = {}
+# Index batches handed to each worker ahead of the one being read.
+_WORKER_AHEAD = 2
 
 
 def _pool_worker_init(data, length_multiple, pad_batch, label_multiple) -> None:
@@ -307,6 +309,23 @@ def _pool_build_batch(indices: List[int]) -> Batch:
         _POOL_STATE["pad_batch"],
         _POOL_STATE["label_multiple"],
     )
+
+
+def _pool_worker(connection, initargs) -> None:
+    """A worker process: builds the batch of each index list it receives and
+    sends back ``(True, batch)``, or ``(False, error)`` if building raised,
+    until the parent kills it or is gone."""
+    _pool_worker_init(*initargs)
+    while True:
+        try:
+            indices = connection.recv()
+        except EOFError:
+            return
+        try:
+            result = (True, _pool_build_batch(indices))
+        except BaseException as error:  # re-raised by the parent
+            result = (False, error)
+        connection.send(result)
 
 
 def _prefetch(iterator: Iterator, buffer_size: int = 2) -> Iterator:
@@ -382,8 +401,8 @@ class Batcher:
         ``process_shard=(process_index, process_count)`` enables multi-process
         loading: every process draws the *same* batch sequence (same seed) but
         materializes audio only for its contiguous row slice, padded to
-        globally agreed shapes. Requires ``data_lengths`` in feature-frame
-        units (RAW audio or precomputed features). ``shard_multiple`` rounds
+        globally agreed shapes (the feature frames of ``data_lengths``, by
+        ``data.feature_length``). Requires ``data_lengths``. ``shard_multiple`` rounds
         the global batch row count up to a multiple (the total device count)
         with filler rows so every step shards evenly."""
         corpus = data.corpus
@@ -424,29 +443,62 @@ class Batcher:
         yield from iterator
 
     def _generate_pooled(self, data: PhonemeDataset, index_batches) -> Iterator[Batch]:
-        """Builds batches in ``self._workers`` forked processes; ``imap`` keeps
-        batch order and every idle worker pulling ahead. The dataset is
-        inherited by fork (never pickled); finished batches come back as
-        pickled numpy arrays. The workers run numpy and Python only: a CUDA
-        call in a forked child fails, so nothing on this path may touch the
-        card. Closing the generator (or dropping it) terminates the pool."""
+        """Builds batches in ``self._workers`` forked processes, each joined to
+        this one by a pipe of its own: index batch ``k`` goes to worker
+        ``k % workers``, which keeps batch order, and every worker holds up to
+        ``_WORKER_AHEAD`` batches. The dataset is inherited by fork (never
+        pickled); finished batches come back as pickled numpy arrays. The
+        workers run numpy and Python only: a CUDA call in a forked child
+        fails, so nothing on this path may touch the card. Closing the
+        generator (or dropping it) kills the workers; no lock is shared with
+        them, so none can be left held (``multiprocessing.Pool.terminate``
+        can hang on a worker caught sending a batch)."""
+        import collections
+        import itertools
         import multiprocessing
         import warnings
 
         context = multiprocessing.get_context("fork")
-        with warnings.catch_warnings():
-            # Python warns that fork in a threaded process can deadlock if the
-            # child takes a lock another thread held; the workers take none of
-            # the parent's locks (the DataLoader's own contract).
-            warnings.filterwarnings("ignore", message=".*fork.*", category=DeprecationWarning)
-            warnings.filterwarnings("ignore", message=".*fork.*", category=RuntimeWarning)
-            pool = context.Pool(
-                self._workers,
-                initializer=_pool_worker_init,
-                initargs=(data, self._length_multiple, self._pad_batch, self._label_multiple),
-            )
-        with pool:
-            yield from pool.imap(_pool_build_batch, index_batches)
+        initargs = (data, self._length_multiple, self._pad_batch, self._label_multiple)
+        workers = []
+        try:
+            with warnings.catch_warnings():
+                # Python warns that fork in a threaded process can deadlock if
+                # the child takes a lock another thread held; the workers take
+                # none of the parent's locks (the DataLoader's own contract).
+                warnings.filterwarnings("ignore", message=".*fork.*", category=DeprecationWarning)
+                warnings.filterwarnings("ignore", message=".*fork.*", category=RuntimeWarning)
+                for _ in range(self._workers):
+                    connection, child_connection = context.Pipe()
+                    process = context.Process(target=_pool_worker, args=(child_connection, initargs), daemon=True)
+                    process.start()
+                    child_connection.close()
+                    workers.append((process, connection))
+            index_batches = iter(index_batches)
+            pending = collections.deque()
+            connections = itertools.cycle([connection for _process, connection in workers])
+
+            def submit(indices) -> None:
+                connection = next(connections)
+                connection.send(indices)
+                pending.append(connection)
+
+            for indices in itertools.islice(index_batches, _WORKER_AHEAD * len(workers)):
+                submit(indices)
+            while pending:
+                built, value = pending.popleft().recv()
+                if not built:
+                    raise value
+                indices = next(index_batches, None)
+                if indices is not None:
+                    submit(indices)
+                yield value
+        finally:
+            for process, connection in workers:
+                process.kill()
+            for process, connection in workers:
+                process.join()
+                connection.close()
 
     def _generate_full(self, data: PhonemeDataset, index_batches) -> Iterator[Batch]:
         for indices in index_batches:
@@ -479,7 +531,7 @@ class Batcher:
             # Global pad targets every process derives identically: audio length
             # from the precomputed length table, label widths from the
             # (audio-free) label path for rows other processes own.
-            pad_to_length = int(max(data_lengths[index] for index in indices))
+            pad_to_length = max(data.feature_length(data_lengths[index]) for index in indices)
             label_pad: Optional[Dict[str, int]] = None
             if data.batch_type == BatchType.INDEXED:
                 local_set = set(local_indices)

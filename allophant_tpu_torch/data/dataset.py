@@ -119,6 +119,13 @@ class PhonemeDataset:
     def _entry_segments(self, item: IndexedEntry) -> Iterable[List[str]]:
         raise NotImplementedError
 
+    def feature_length(self, num_samples: int) -> int:
+        """The feature frames of an item of ``num_samples`` audio samples (of
+        precomputed features: their length as it is)."""
+        if self._features is not None:
+            return int(num_samples)
+        return self._processor.feature_function.frame_count(int(num_samples))
+
     def sample_labels(self, index: int) -> Dict[str, np.ndarray]:
         """Per-attribute label ids for one item *without* touching audio — used by
         multi-host batching, where every process needs global label pad targets but

@@ -293,12 +293,13 @@ def flagship_config() -> Architecture:
     return Config.load(demo_config_dict()).nn
 
 
-def _flagship_build(architecture: Optional[Wav2Vec2Architecture], dtype, head_dtype, device, param_dtype=None, remat=False):
+def _flagship_build(architecture: Optional[Wav2Vec2Architecture], dtype, head_dtype, device, param_dtype=None, remat=False, mesh=None):
     config = Config.load(demo_config_dict())
     indexer = demo_indexer(config)
     return build_model(
         config.nn, 1, 16_000, attribute_graph_from_config(config, indexer), indexer,
         architecture, dtype=dtype, head_dtype=head_dtype, device=device, param_dtype=param_dtype, remat=remat,
+        mesh=mesh,
     )
 
 
@@ -346,17 +347,19 @@ def build_flagship_for_training(
     precision: str = DEFAULT_SERVING_PRECISION,
     device=None,
     remat: bool = False,
+    mesh=None,
 ) -> Tuple[Architecture, AllophantModel]:
     """(training config, model) of the flagship for ``training/train_step``:
     float32 parameters (the optimizer's master weights, cast to the preset's
     compute dtypes at each call), the config's whole-run-frozen prefix, and
     the configured dropout rates (``architecture`` replaces the encoder, e.g.
     a tiny one or one with other rates); ``remat`` rematerialises the encoder
-    layers. Sets the preset's float32 matmul precision, which is
-    process-global."""
+    layers; over a ``mesh`` with a model axis, the model is this rank's shard
+    of the one-device model of ``seed``. Sets the preset's float32 matmul
+    precision, which is process-global."""
     device = resolve_device(device)
     dtype, head_dtype, f32_matmul_precision = resolve_precision(precision)
-    model = _flagship_build(architecture, dtype, head_dtype, device, param_dtype=torch.float32, remat=remat).model
-    seeded_initialization(model, seed)
+    model = _flagship_build(architecture, dtype, head_dtype, device, param_dtype=torch.float32, remat=remat, mesh=mesh).model
+    seeded_initialization(model, seed, mesh)
     set_float32_precision(f32_matmul_precision)
     return flagship_config(), model

@@ -64,7 +64,10 @@ class AllophantModel(nn.Module):
     ``frozen_prefix`` is the acoustic model's whole-run-frozen prefix
     (``whole_run_frozen_prefix``); ``remat`` rematerialises the wav2vec2
     encoder layers in training, keeping ``remat_save_names`` (the
-    transformer takes neither, as in the JAX model)."""
+    transformer takes neither, as in the JAX model). ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards the wav2vec2 encoder layers over its model
+    axis; the transformer and the projection stay replicated on every model
+    rank."""
 
     def __init__(
         self,
@@ -77,16 +80,18 @@ class AllophantModel(nn.Module):
         frozen_prefix: int = 0,
         remat: bool = False,
         remat_save_names=REMAT_SAVE_NAMES_BASE,
+        mesh=None,
     ):
         super().__init__()
         self.architecture = architecture
+        self.mesh = mesh
         self.plan = plan
         self.dtype = dtype
         self.head_dtype = dtype if head_dtype is None else head_dtype
         if isinstance(architecture, Wav2Vec2Architecture):
             self.acoustic_model = Wav2Vec2Model(
                 architecture, dtype, needs_intermediate_taps(plan), device, param_dtype, frozen_prefix,
-                remat, remat_save_names,
+                remat, remat_save_names, mesh,
             )
         elif isinstance(architecture, TransformerArchitecture):
             self.acoustic_model = TransformerAcousticModel(architecture, dtype, device, param_dtype)
@@ -168,12 +173,14 @@ def build_model(
     param_dtype: Optional[torch.dtype] = None,
     remat: bool = False,
     remat_save_names=REMAT_SAVE_NAMES_BASE,
+    mesh=None,
 ) -> BuiltModel:
     """The Allophant model of an ``nn`` configuration (reference :988-1025),
     on ``device``, with zero weights and the plan's static tables in place.
     A wav2vec2-pretrained encoder is XLS-R 300M unless
     ``wav2vec2_architecture`` replaces it, cut above the highest "OUTPUT_<i>"
-    tap; a pre-LN transformer reads ``feature_size`` features a frame."""
+    tap; a pre-LN transformer reads ``feature_size`` features a frame.
+    ``mesh`` shards the wav2vec2 encoder layers over its model axis."""
     layer_config = architecture.acoustic_model
     if isinstance(layer_config, Wav2Vec2PretrainedConfig):
         if sample_rate != 16_000:
@@ -202,6 +209,7 @@ def build_model(
     model = AllophantModel(
         arch, plan, dtype, head_dtype, device=device, param_dtype=param_dtype,
         frozen_prefix=whole_run_frozen_prefix(layer_config), remat=remat, remat_save_names=remat_save_names,
+        mesh=mesh,
     )
     from allophant_tpu_torch.weights import load_static_data
 

@@ -23,28 +23,65 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# Large odd strides (2^32 over the golden ratio, and MurmurHash3's first
+# multiplier) between the dropout streams of data ranks and of model ranks.
+_STREAM_STRIDE = 0x9E3779B1
+_SHARD_STRIDE = 0x85EBCA6B
+
+
 @dataclasses.dataclass
 class DropoutRng:
     """The random state of one training forward: ``host`` (a CPU generator)
     draws the attention-dropout kernel seeds without a device sync, ``device``
-    (a generator on the activations' device) draws the elementwise masks."""
+    (a generator on the activations' device) draws the elementwise masks.
+    Under tensor parallelism ``shard`` (this model rank's own pair) draws the
+    masks of tensors sharded over the model axis: the encoder layers' local
+    heads and FFN columns."""
 
     host: torch.Generator
     device: torch.Generator
+    shard: Optional["DropoutRng"] = None
 
     @classmethod
-    def from_seed(cls, seed: int, device) -> "DropoutRng":
+    def from_seed(cls, seed: int, device, stream: int = 0, shard: Optional[int] = None) -> "DropoutRng":
+        """The generators from ``seed``; ``stream`` (a data-parallel rank) is
+        folded into all, so that each stream draws its own masks, and stream
+        0 draws those of one device. ``shard`` (a model-parallel rank; None
+        without a model axis) is folded into ``shard`` only, so that the ranks
+        of a model group draw equal masks on the activations they all hold
+        and their own on their shards. The CPU generator keeps only a seed's
+        low 32 bits, so streams and shards move them by large odd strides:
+        two streams' seeds of steps ``s`` and ``t`` meet only if ``t - s`` is
+        about 10^9."""
         device = torch.device(device)
+        seed = seed + stream * _STREAM_STRIDE
+        own = None if shard is None else cls.from_seed(seed + (shard + 1) * _SHARD_STRIDE, device)
         host = torch.Generator(device="cpu").manual_seed(seed)
-        return cls(host, torch.Generator(device=device).manual_seed(seed + 1))
+        return cls(host, torch.Generator(device=device).manual_seed(seed + 1), own)
+
+    @classmethod
+    def for_mesh(cls, seed: int, device, mesh=None) -> "DropoutRng":
+        """``from_seed`` for this rank of a ``parallel.mesh.Mesh`` (None: one
+        device): its data rank's stream, and its model rank's shard when the
+        mesh has a model axis."""
+        if mesh is None:
+            return cls.from_seed(seed, device)
+        return cls.from_seed(seed, device, mesh.data_rank, mesh.model_rank if mesh.model_parallel > 1 else None)
+
+    def sharded(self) -> "DropoutRng":
+        """The generators for a tensor sharded over the model axis."""
+        return self if self.shard is None else self.shard
 
     def get_state(self):
-        """Both generators' states, for ``set_state`` to replay a region's draws."""
-        return self.host.get_state(), self.device.get_state()
+        """Every generator's state, for ``set_state`` to replay a region's draws."""
+        state = (self.host.get_state(), self.device.get_state())
+        return state if self.shard is None else state + self.shard.get_state()
 
     def set_state(self, state) -> None:
         self.host.set_state(state[0])
         self.device.set_state(state[1])
+        if self.shard is not None:
+            self.shard.set_state(state[2:])
 
     def kernel_seeds(self):
         """Two int32 seeds for the attention-dropout kernels, drawn on the host."""

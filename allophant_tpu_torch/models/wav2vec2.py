@@ -21,6 +21,17 @@ backward never reruns it. Inside a region, a selective-checkpoint policy keeps
 the matmul outputs of the named projections; the region's dropout draws are
 replayed from the ``DropoutRng`` states it began with.
 
+Tensor parallelism (``mesh`` with a model axis of tp > 1, JAX's dp x tp
+shardings, ``parallel/sharding.py``): each encoder layer holds H/tp heads of
+the fused QKV projection and 4096/tp (``intermediate_size``/tp) FFN columns;
+the attention kernels run on the local [B, T, (H/tp)·hd] tile; the output
+projection and the FFN's down projection are row-parallel, their partial sums
+reduced over the model group before the bias and the residual, and the
+backward reduces the input gradient of the column-parallel projections
+(``parallel/tensor_parallel.py``). Under remat the reduces inside a
+rematerialised region run again in its recompute, on every rank of the model
+group in the same order.
+
 Every dropout site of the JAX model is here (feature projection, encoder
 input, attention weights, after attention, FFN activation and output); a
 forward with ``rng=None`` is deterministic. ``frozen_prefix`` (JAX
@@ -43,6 +54,7 @@ from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.activations import fast_gelu
 from allophant_tpu_torch.ops.attention import key_bias_from_mask, multi_head_attention
 from allophant_tpu_torch.ops.frame_encoder import FusedFrameConv
+from allophant_tpu_torch.parallel.tensor_parallel import RowParallelDense, copy_to_model_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,29 +243,52 @@ def rematerialised(function: Callable, rng: Optional[DropoutRng], save_names: Tu
     )
 
 
+def _model_parallel(mesh) -> Tuple[int, Optional[object]]:
+    """(tp, model group) of ``mesh`` (None: one device)."""
+    return (1, None) if mesh is None else (mesh.model_parallel, mesh.model_group)
+
+
+def _split(size: int, parts: int, what: str) -> int:
+    if size % parts:
+        raise ValueError(f"{size} {what} do not split over {parts} model-parallel ranks")
+    return size // parts
+
+
+def _output_dense(in_features: int, out_features: int, dtype, device, param_dtype, mesh) -> Dense:
+    """A Dense of the whole input (one device) or its row-parallel shard."""
+    tp, group = _model_parallel(mesh)
+    if tp == 1:
+        return Dense(in_features, out_features, dtype, device, param_dtype)
+    return RowParallelDense(in_features // tp, out_features, dtype, device, param_dtype, group)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention over the one-shot kernels; q/k/v come from one
     fused projection whose [B, T, 3D] output the kernels read through strides.
     Training attention dropout runs inside the kernel (K5) for every
-    0 < rate < 1."""
+    0 < rate < 1. Under tensor parallelism the layer holds H/tp heads: a
+    [B, T, 3D/tp] tile and a row-parallel output projection."""
 
-    def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None):
+    def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None, mesh=None):
         super().__init__()
-        self.heads = arch.num_attention_heads
-        self.hidden_size = arch.hidden_size
+        tp, self.group = _model_parallel(mesh)
+        self.heads = _split(arch.num_attention_heads, tp, "attention heads")
+        self.width = arch.hidden_size // tp
         self.dropout_rate = arch.attention_dropout
-        self.qkv_proj = Dense(arch.hidden_size, 3 * arch.hidden_size, dtype, device, param_dtype)
-        self.out_proj = Dense(arch.hidden_size, arch.hidden_size, dtype, device, param_dtype)
+        self.qkv_proj = Dense(arch.hidden_size, 3 * self.width, dtype, device, param_dtype)
+        self.out_proj = _output_dense(arch.hidden_size, arch.hidden_size, dtype, device, param_dtype, mesh)
 
     def project(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The fused [B, T, 3D] QKV projection."""
+        """The fused [B, T, 3D/tp] QKV projection."""
+        hidden = copy_to_model_parallel(hidden, self.group)
         with checkpoint_name("w2v2_qkv"):
             return self.qkv_proj(hidden)
 
     def attend(self, qkv: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        """The [B, T, D] attention context of a fused QKV tile."""
-        query, key, value = qkv.split(self.hidden_size, dim=-1)
-        head_dim = self.hidden_size // self.heads
+        """The [B, T, D/tp] attention context of a fused QKV tile."""
+        query, key, value = qkv.split(self.width, dim=-1)
+        head_dim = self.width // self.heads
+        rng = None if rng is None else rng.sharded()
         return multi_head_attention(query, key, value, key_bias, head_dim**-0.5, self.heads, self.dropout_rate, rng)
 
     def output(self, context: torch.Tensor) -> torch.Tensor:
@@ -265,17 +300,23 @@ class SelfAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None):
+    """The FFN; under tensor parallelism this rank's intermediate_size/tp
+    columns and a row-parallel down projection."""
+
+    def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None, mesh=None):
         super().__init__()
+        tp, self.group = _model_parallel(mesh)
         self.activation_dropout = arch.activation_dropout
         self.hidden_dropout = arch.hidden_dropout
-        self.intermediate_dense = Dense(arch.hidden_size, arch.intermediate_size, dtype, device, param_dtype)
-        self.output_dense = Dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype)
+        width = _split(arch.intermediate_size, tp, "FFN columns")
+        self.intermediate_dense = Dense(arch.hidden_size, width, dtype, device, param_dtype)
+        self.output_dense = _output_dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype, mesh)
 
     def forward(self, hidden: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        hidden = copy_to_model_parallel(hidden, self.group)
         with checkpoint_name("w2v2_ffn_hidden"):
             hidden = self.intermediate_dense(hidden)
-        hidden = dropout(fast_gelu(hidden), self.activation_dropout, rng)
+        hidden = dropout(fast_gelu(hidden), self.activation_dropout, None if rng is None else rng.sharded())
         with checkpoint_name("w2v2_ffn_out"):
             hidden = self.output_dense(hidden)
         return dropout(hidden, self.hidden_dropout, rng)
@@ -294,6 +335,7 @@ class EncoderLayer(nn.Module):
         param_dtype=None,
         remat: bool = False,
         remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
+        mesh=None,
     ):
         super().__init__()
         self.stable = arch.do_stable_layer_norm
@@ -301,9 +343,9 @@ class EncoderLayer(nn.Module):
         self.remat = remat
         self.remat_save_names = tuple(remat_save_names)
         self.layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
-        self.attention = SelfAttention(arch, dtype, device, param_dtype)
+        self.attention = SelfAttention(arch, dtype, device, param_dtype, mesh)
         self.final_layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
-        self.feed_forward = FeedForward(arch, dtype, device, param_dtype)
+        self.feed_forward = FeedForward(arch, dtype, device, param_dtype, mesh)
 
     def _attention_input(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.layer_norm(hidden) if self.stable else hidden
@@ -345,6 +387,7 @@ class Wav2Vec2Encoder(nn.Module):
         param_dtype=None,
         remat: bool = False,
         remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
+        mesh=None,
     ):
         super().__init__()
         self.stable = arch.do_stable_layer_norm
@@ -353,7 +396,7 @@ class Wav2Vec2Encoder(nn.Module):
         self.pos_conv_embed = PositionalConvEmbedding(arch, dtype, device, param_dtype)
         self.layer_norm = LayerNorm(arch.hidden_size, arch.layer_norm_eps, dtype, device)
         self.layers = nn.ModuleList(
-            EncoderLayer(arch, dtype, device, param_dtype, remat, remat_save_names)
+            EncoderLayer(arch, dtype, device, param_dtype, remat, remat_save_names, mesh)
             for _ in range(arch.num_hidden_layers)
         )
 
@@ -391,7 +434,8 @@ class Wav2Vec2Model(nn.Module):
     weights; ``frozen_prefix`` is the number of leading groups of
     (feature_extractor, feature_projection, encoder) that run without
     gradients (JAX: ``stop_gradient`` at the prefix boundary); ``remat``
-    rematerialises the encoder layers in training."""
+    rematerialises the encoder layers in training; ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards the encoder layers over its model axis."""
 
     def __init__(
         self,
@@ -403,13 +447,14 @@ class Wav2Vec2Model(nn.Module):
         frozen_prefix: int = 0,
         remat: bool = False,
         remat_save_names: Tuple[str, ...] = REMAT_SAVE_NAMES_BASE,
+        mesh=None,
     ):
         super().__init__()
         self.arch = arch
         self.frozen_prefix = frozen_prefix
         self.feature_extractor = ConvFeatureEncoder(arch, dtype, device, param_dtype)
         self.feature_projection = FeatureProjection(arch, dtype, device, param_dtype)
-        self.encoder = Wav2Vec2Encoder(arch, dtype, collect_all, device, param_dtype, remat, remat_save_names)
+        self.encoder = Wav2Vec2Encoder(arch, dtype, collect_all, device, param_dtype, remat, remat_save_names, mesh)
 
     def _prefix(self, group: int):
         """The gradient mode of the ``group``-th group (1-based)."""

@@ -11,7 +11,14 @@ here rather than by ``zero_infinity=True``: a row is zeroed when it is
 infeasible (label_length + repeats > frames) or its loss is not finite, and
 rows are weighted by ``row_weights``. ``F.ctc_loss``'s backward returns the
 gradient for log_softmax outputs, so it is always fed
-``log_softmax(logits.float())``, never raw logits."""
+``log_softmax(logits.float())``, never raw logits.
+
+The recursion runs in float64: the f32 log-probs are cast up before
+``F.ctc_loss`` (ATen's own kernels, on the CPU and on CUDA; cuDNN's CTC takes
+float32 only) and the gradient is cast back to float32 on its way to the
+log_softmax. In float32 the recursion's gradient drifts with the frame count
+(1.4e-3 from the exact one at 500 frames, where JAX's float32 ``lax.scan``
+stays at 1.2e-4); in float64 it stays at the float32 rounding of the result."""
 
 from __future__ import annotations
 
@@ -34,20 +41,20 @@ def _degenerate_rows(labels, label_lengths, logit_lengths) -> torch.Tensor:
 
 
 def _ctc_rows(log_probs, labels, logit_lengths, label_lengths, blank_id: int) -> torch.Tensor:
-    """Per-row CTC losses [R] of f32 log-probs [R, T, C], zeroed by JAX's rule.
-    A degenerate row runs as one frame with no labels (a finite loss and
+    """Per-row f32 CTC losses [R] of f32 log-probs [R, T, C], zeroed by JAX's
+    rule; the recursion runs in float64. A degenerate row runs as one frame with no labels (a finite loss and
     gradient) and is zeroed after: its true loss is +inf, whose gradient would
     be NaN even under a zero cotangent."""
     degenerate = _degenerate_rows(labels, label_lengths, logit_lengths)
     losses = F.ctc_loss(
-        log_probs.transpose(0, 1),
+        log_probs.transpose(0, 1).double(),
         labels.long(),
         torch.where(degenerate, torch.ones_like(logit_lengths), logit_lengths).long(),
         torch.where(degenerate, torch.zeros_like(label_lengths), label_lengths).long(),
         blank=blank_id,
         reduction="none",
         zero_infinity=False,
-    )
+    ).float()
     return torch.where(degenerate | ~torch.isfinite(losses), 0.0, losses)
 
 

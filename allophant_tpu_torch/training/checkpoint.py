@@ -366,14 +366,17 @@ def convert_reference_model_state(
     return params
 
 
-def variables_from_model(model) -> Dict[str, Dict]:
+def variables_from_model(model, parameters=None) -> Dict[str, Dict]:
     """The JAX package's variable tree of an ``AllophantModel``: its
-    parameters as float32 ``params`` (the master weights) and the plan's
+    parameters (or ``parameters``, the whole ones by name of a model sharded
+    over a mesh) as float32 ``params`` (the master weights) and the plan's
     static tables as ``buffers`` (an empty ``projection`` entry when the plan
     has none, as flax's tree has)."""
     from allophant_tpu_torch.weights import jax_params_from_state
 
-    state = {name: parameter.detach().float() for name, parameter in model.named_parameters()}
+    if parameters is None:
+        parameters = dict(model.named_parameters())
+    state = {name: parameter.detach().float() for name, parameter in parameters.items()}
     params = jax_params_from_state(state, model.architecture)
     projection = model.projection
     buffers: Dict[str, Any] = {}

@@ -5,6 +5,12 @@ serving step ``predict_beam_decoded``, ``map_allophones`` and
 (``from_config``) or restored from a checkpoint (``restore``), ``train`` and
 ``save``.
 
+Over a ``parallel.mesh.Mesh`` (``use_data_parallel``, or ``from_config`` and
+``restore`` given one) each data rank predicts its rows of a batch and every
+rank returns the whole batch's outputs; ``train`` trains over the mesh; only
+the mesh's first rank writes a checkpoint, the full one-device checkpoint
+gathered from the model-parallel shards.
+
 PyTorch runs eagerly, so there is no per-bucket compile cache; the audio is
 still bucketed exactly as the JAX estimator buckets it, because the width of
 the decoded grid depends on the bucket."""
@@ -23,6 +29,7 @@ from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
 from allophant_tpu_torch.models.wav2vec2 import REMAT_SAVE_NAMES_BASE, Wav2Vec2Architecture
 from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
+from allophant_tpu_torch.parallel import mesh as mesh_module
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer, PhoneticIndexerState
 from allophant_tpu_torch.training import checkpoint as checkpoint_module
@@ -210,6 +217,24 @@ class Estimator:
         # Serialized optimizer and early-stopping state to resume from
         # (``TrainingRun.serialized_training_state``); consumed by ``train``.
         self.training_state: Optional[bytes] = None
+        # The mesh of the model's shards, if any; ``use_data_parallel`` sets
+        # the one predictions shard their rows over.
+        self.mesh = model.mesh
+
+    def use_data_parallel(self, mesh=None) -> "Estimator":
+        """Shards prediction batches over the data ranks of ``mesh`` (default:
+        every rank of the process group, no model axis): each data rank runs
+        its contiguous rows of a batch, and every rank returns the whole
+        batch's outputs. The mesh's model axis must be the model's own (1 for
+        a model that is not sharded). Training over it follows from
+        ``train``."""
+        if mesh is None:
+            mesh = mesh_module.create_mesh(model_parallel=1)
+        own = 1 if self.model.mesh is None else self.model.mesh.model_parallel
+        if mesh.model_parallel != own:
+            raise ValueError(f"The mesh's model axis ({mesh.model_parallel}) is not the model's ({own})")
+        self.mesh = mesh
+        return self
 
     @classmethod
     def from_config(
@@ -226,6 +251,7 @@ class Estimator:
         device=None,
         remat: bool = False,
         remat_save_names=REMAT_SAVE_NAMES_BASE,
+        mesh=None,
     ) -> "Estimator":
         """A trainable Estimator of ``config`` on ``device`` (CUDA unless the
         caller asks for another; raises without one): float32 master
@@ -236,7 +262,8 @@ class Estimator:
         config's, ``DatasetManager.feature_size``), which the transformer's
         frontend reads. ``remat`` rematerialises the wav2vec2 encoder layers
         in training. Pretrained encoder weights are not loaded: the port has
-        no access to a model hub."""
+        no access to a model hub. Over a ``mesh`` with a model axis the model
+        is this rank's shard of the one-device model of ``seed``."""
         from allophant_tpu_torch.models.allophant import build_model
         from allophant_tpu_torch.weights import seeded_initialization
 
@@ -249,9 +276,9 @@ class Estimator:
         built = build_model(
             config.nn, feature_size, sample_rate, attribute_graph, attribute_indexer, wav2vec2_architecture,
             dtype=dtype, head_dtype=head_dtype, device=device, param_dtype=torch.float32,
-            remat=remat, remat_save_names=remat_save_names,
+            remat=remat, remat_save_names=remat_save_names, mesh=mesh,
         )
-        seeded_initialization(built.model, seed)
+        seeded_initialization(built.model, seed, mesh)
         return cls(
             built.model, precision, device,
             config=config, feature_size=feature_size, sample_rate=sample_rate, attribute_graph=attribute_graph,
@@ -266,6 +293,7 @@ class Estimator:
         precision: Optional[str] = None,
         device=None,
         remat: bool = False,
+        mesh=None,
     ) -> Tuple["Estimator", PhoneticAttributeIndexer]:
         """Restores from a native or reference checkpoint (a path, a hub model
         id in the local cache, or a parsed ``Checkpoint``) onto ``device``
@@ -281,8 +309,9 @@ class Estimator:
         encoder is XLS-R 300M, or for a reference checkpoint the architecture
         its tensors show. Every leaf of the checkpoint is shape-checked
         against the model before any is loaded. ``remat`` rematerialises the
-        encoder layers when the restored model trains."""
-        from allophant_tpu_torch.weights import load_jax_variables
+        encoder layers when the restored model trains. Over a ``mesh`` with a
+        model axis every rank reads the checkpoint and keeps its shard."""
+        from allophant_tpu_torch.weights import load_full_state, state_dict_from_jax
 
         if isinstance(dtype, str):
             dtype = None
@@ -309,9 +338,10 @@ class Estimator:
             precision=precision,
             device=device,
             remat=remat,
+            mesh=mesh,
         )
         model = estimator.model
-        expected = variables_from_model(model)
+        expected = variables_from_model(model, estimator.full_parameters())
         if checkpoint.variables is not None:
             variables = checkpoint.variables
         elif checkpoint.reference_model_state is not None:
@@ -325,7 +355,7 @@ class Estimator:
         else:
             raise ValueError("The checkpoint holds no model weights")
         _check_tree_shapes(expected, variables)
-        load_jax_variables(model, variables)
+        load_full_state(model, state_dict_from_jax(variables, model.architecture.num_hidden_layers), mesh)
 
         estimator.epoch = checkpoint.epoch
         estimator.history = checkpoint.history
@@ -349,9 +379,16 @@ class Estimator:
         phonetic_indexer_state: Optional[PhoneticIndexerState] = None,
         additional_parameters: Optional[Dict[str, Any]] = None,
     ) -> None:
-        """Writes the native checkpoint (``training/checkpoint.save_native``)."""
+        """Writes the native checkpoint (``training/checkpoint.save_native``).
+        Over a mesh every rank calls it: the model-parallel shards are
+        gathered, the mesh's first rank writes, and the others wait for it."""
         if self.config is None or self.attribute_graph is None:
             raise ValueError("Only an Estimator built from a configuration can be saved")
+        parameters = self.full_parameters()
+        mesh = self.model.mesh
+        if mesh is not None and mesh.index != 0:
+            mesh_module.barrier(mesh)
+            return
         save_native(
             Checkpoint(
                 config=self.config,
@@ -360,7 +397,7 @@ class Estimator:
                 attribute_graph=self.attribute_graph,
                 epoch=self.epoch,
                 phonetic_indexer_state=phonetic_indexer_state,
-                variables=variables_from_model(self.model),
+                variables=variables_from_model(self.model, parameters),
                 optimizer_state=optimizer_state,
                 history=self.history,
                 dataset_meta_data=self.dataset_meta_data,
@@ -368,6 +405,18 @@ class Estimator:
             ),
             file_path,
         )
+        if mesh is not None:
+            mesh_module.barrier(mesh)
+
+    def full_parameters(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters by name, whole: gathered over the model
+        group when the model is sharded (every rank of the group calls it)."""
+        from allophant_tpu_torch.parallel.sharding import gather_state
+
+        named = dict(self.model.named_parameters())
+        if self.model.mesh is None:
+            return {name: parameter.detach() for name, parameter in named.items()}
+        return gather_state(named, self.model.mesh)
 
     @property
     def classes(self):
@@ -391,6 +440,34 @@ class Estimator:
             target_feature_indices = to_device(np.asarray(target_feature_indices, dtype=np.int64), device)
         return inputs, target_feature_indices
 
+    def _local_rows(self, batch: Batch):
+        """(this rank's rows of ``batch``, their place) under a data-parallel
+        mesh, else (``batch``, None). The batch is padded to a multiple of the
+        data ranks with copies of its last row; the place is (first row,
+        padded rows, real rows)."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_parallel == 1:
+            return batch, None
+        size = len(batch.lengths)
+        total = -(-size // mesh.data_parallel) * mesh.data_parallel
+        rows = np.minimum(np.arange(total), size - 1)
+        share = mesh_module.process_local_slice(total, mesh)
+        local = rows[share]
+        language_ids = np.broadcast_to(np.asarray(batch.language_ids), (size,))
+        local_batch = Batch(
+            np.asarray(batch.audio_features)[local], np.asarray(batch.lengths)[local], language_ids[local]
+        )
+        return local_batch, (share.start, total, size)
+
+    def _all_rows(self, tensor: torch.Tensor, place, dim: int = 0) -> torch.Tensor:
+        """The whole batch's ``tensor`` from this rank's rows along ``dim``
+        (``place`` from ``_local_rows``; None: already whole)."""
+        if place is None:
+            return tensor
+        start, total, size = place
+        gathered = mesh_module.gather_rows(tensor.movedim(dim, 0), start, total, self.mesh.data_group)
+        return gathered[:size].movedim(0, dim)
+
     def _forward(self, batch: Batch, target_feature_indices) -> Tuple[Predictions, torch.Tensor]:
         set_float32_precision(self.f32_matmul_precision)
         (audio, lengths, language_ids), target_feature_indices = self._inputs(batch, target_feature_indices)
@@ -407,13 +484,15 @@ class Estimator:
     ) -> Predictions:
         """Per-task outputs, time-first [T, B, C] by default (batch-first with
         ``time_major=False``); log-probabilities are taken in f32 on every path."""
+        batch, place = self._local_rows(batch)
         predictions, _ = self._forward(batch, target_feature_indices)
         outputs = predictions.outputs
         if log_probabilities:
             outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in outputs.items()}
+        outputs = {name: self._all_rows(value, place) for name, value in outputs.items()}
         if time_major:
             outputs = {name: value.transpose(0, 1) for name, value in outputs.items()}
-        return Predictions(outputs, predictions.lengths)
+        return Predictions(outputs, self._all_rows(predictions.lengths, place))
 
     @torch.inference_mode()
     def predict_decoded(
@@ -427,6 +506,7 @@ class Estimator:
         ``grid`` is uint16 [H, B, T'+1] — per head ``heads[h]``, row b: column 0
         the decoded token count, columns 1.. the blank-free collapsed token ids
         (0 past the count)."""
+        batch, place = self._local_rows(batch)
         predictions, language_ids = self._forward(batch, target_feature_indices)
         outputs = dict(predictions.outputs)
         if map_allophones:
@@ -443,7 +523,8 @@ class Estimator:
                 outputs[name], predictions.lengths, BLANK_INDEX
             )
             lanes.append(torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
-        return torch.stack(lanes).to(torch.uint16), predictions.lengths
+        grid = torch.stack(lanes).to(torch.uint16)
+        return self._all_rows(grid, place, dim=1), self._all_rows(predictions.lengths, place)
 
     @torch.inference_mode()
     def predict_beam_decoded(
@@ -463,6 +544,7 @@ class Estimator:
         not invariant to log_softmax; with ``map_allophones`` the phoneme layer
         is the allophone map of the phone head's log-probs. Heads of equal
         class count share one search launch (``beam_search_heads``)."""
+        batch, place = self._local_rows(batch)
         predictions, language_ids = self._forward(batch, target_feature_indices)
         outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in predictions.outputs.items()}
         if map_allophones:
@@ -470,7 +552,11 @@ class Estimator:
         collected, scores = beam_search_heads(
             [outputs[name] for name in heads], predictions.lengths, beam_width, BLANK_INDEX
         )
-        return collected, scores, predictions.lengths
+        return (
+            self._all_rows(collected, place, dim=2),
+            self._all_rows(scores, place, dim=1),
+            self._all_rows(predictions.lengths, place),
+        )
 
     def downsampled_lengths(self, lengths) -> np.ndarray:
         """CTC frame counts of audio lengths in samples."""

@@ -10,7 +10,17 @@ transfer. It yields ``(TrainingStatus, EpochStatistics)`` per validation point
 exactly like the JAX package's generator. Batches are the JAX loop's, padded to
 the same length and label multiples, drawn in the same order from the same
 seeds. Dropout draws from ``DropoutRng.from_seed(seed + step)``; its bits are
-the port's own, like the attention-dropout mask."""
+the port's own, like the attention-dropout mask.
+
+Over the estimator's mesh (one process a device, JAX's data-parallel loop):
+every rank draws the same batch sequence and loads only its rows
+(``process_shard``), a batch whose rows do not divide padded with zero-weight
+filler rows; each data rank folds its rank into the dropout generators; a
+stop asked of any rank (SIGTERM) is summed with the step's metrics, so all
+stop after the same step; validation batches are split the same way and
+their sums reduced, so every rank takes the same early-stopping decision;
+the optimizer's moments are gathered from the model-parallel shards for a
+checkpoint, which only the mesh's first rank writes."""
 
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from allophant_tpu_torch.data.dataset import (
 from allophant_tpu_torch.data.speech_corpus import MultilingualCorpus, MultilingualSplits
 from allophant_tpu_torch.device import set_float32_precision
 from allophant_tpu_torch.models.layers import DropoutRng
+from allophant_tpu_torch.parallel.sharding import gather_state, param_spec, replicate, shard_tensor
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
 from allophant_tpu_torch.training import msgpack_codec
@@ -228,16 +239,19 @@ class DatasetManager:
             label_multiple=self.label_multiple,
         )
 
-    def training_batches(self, seed: Optional[int] = None, skip_batches: int = 0):
+    def training_batches(self, seed: Optional[int] = None, skip_batches: int = 0, process_shard=None):
+        """The training batches of an epoch; with ``process_shard=(index,
+        count)`` this process's rows of each (``Batcher.batches``)."""
         return self._batcher().batches(
             self.train_dataset,
             self.train_lengths,
             shuffle=True,
             seed=self.config.nn.seed if seed is None else seed,
             skip_batches=skip_batches,
+            process_shard=process_shard,
         )
 
-    def validation_batches(self):
+    def validation_batches(self, process_shard=None):
         if self.validation_dataset is None:
             return iter(())
         batcher = Batcher(
@@ -247,7 +261,7 @@ class DatasetManager:
             length_multiple=self.length_multiple,
             label_multiple=self.label_multiple,
         )
-        return batcher.batches(self.validation_dataset, self.validation_lengths)
+        return batcher.batches(self.validation_dataset, self.validation_lengths, process_shard=process_shard)
 
     @classmethod
     def from_config(
@@ -308,21 +322,6 @@ class DatasetManager:
             label_multiple,
             data_workers,
         )
-
-
-def _maybe_lengths(corpus: MultilingualCorpus) -> Optional[np.ndarray]:
-    """Per-utterance frame lengths if the corpus can provide them cheaply (audio
-    header probing), required for frame-budget batching."""
-    reader = getattr(corpus, "read_lengths", None)
-    if reader is None:
-        return None
-    try:
-        lengths: List[int] = []
-        for _language, generator in reader():
-            lengths.extend(generator)
-        return np.asarray(lengths, dtype=np.int64)
-    except Exception:
-        return None
 
 
 def _maybe_lengths(corpus: MultilingualCorpus) -> Optional[np.ndarray]:
@@ -562,19 +561,26 @@ class TrainingRun:
         self._accumulation = max(architecture.accumulation_factor, 1)
         self._skip_batches = skip_batches
         self._device = estimator.device
+        mesh = estimator.mesh
+        self._mesh = mesh if mesh is not None and mesh.size > 1 else None
 
         model = estimator.model
+        if self._mesh is not None:
+            replicate(model, self._mesh)
+        self._names = [name for name, _parameter in model.named_parameters()]
         d_model = int(model.architecture.hidden_size)
         self._optimizer = create_optimizer(architecture, d_model, model.parameters())
         loss_plan = build_loss_plan(architecture, model.plan.allophone_shape is not None)
-        self._train_step = make_train_step(model, self._optimizer, loss_plan, build_freeze_plan(architecture.acoustic_model))
+        self._train_step = make_train_step(
+            model, self._optimizer, loss_plan, build_freeze_plan(architecture.acoustic_model), self._mesh
+        )
         # Label ids each head takes (the allophone head's are the pooled
         # phonemes): an id outside them would index past the CTC input.
         self._label_limits = {
             node.name: model.plan.allophone_shape[2] if node.has_allophone else node.output_size
             for node in model.plan.nodes
         }
-        self._eval_step = make_eval_step(model, loss_plan)
+        self._eval_step = make_eval_step(model, loss_plan, self._mesh)
         self._lr_schedule = self._optimizer.learning_rate if architecture.lr_schedule else None
 
         self.early_stopping = EarlyStopping(architecture.early_stopping_patience)
@@ -598,13 +604,42 @@ class TrainingRun:
         synced to the estimator, and returns."""
         self._stop_requested = True
 
+    def _data_shard(self):
+        """(data rank, data ranks) for ``Batcher.batches``, or None on one."""
+        mesh = self._mesh
+        return None if mesh is None or mesh.data_parallel == 1 else (mesh.data_rank, mesh.data_parallel)
+
+    def _map_moments(self, state: Dict[str, Any], convert) -> Dict[str, Any]:
+        """``state`` (an optimizer ``state_dict``) with each parameter's
+        moments ``convert(name, tensor)``; scalars as they are."""
+        moments = {
+            index: {
+                key: convert(self._names[index], value) if isinstance(value, torch.Tensor) and value.ndim else value
+                for key, value in entry.items()
+            }
+            for index, entry in state["state"].items()
+        }
+        return {**state, "state": moments}
+
     def _optimizer_bytes(self) -> bytes:
+        """The optimizer's state in torch's serialization, its moments whole
+        (gathered over the model group: every rank calls it)."""
+        state = self._optimizer.optimizer.state_dict()
+        mesh = self._mesh
+        if mesh is not None and mesh.model_parallel > 1:
+            state = self._map_moments(state, lambda name, value: gather_state({name: value}, mesh)[name])
         buffer = io.BytesIO()
-        torch.save({"count": self._optimizer.count, "state": self._optimizer.optimizer.state_dict()}, buffer)
+        torch.save({"count": self._optimizer.count, "state": state}, buffer)
         return buffer.getvalue()
 
     def _load_optimizer(self, data: bytes) -> None:
         saved = torch.load(io.BytesIO(data), map_location=self._device, weights_only=True)
+        mesh = self._mesh
+        if mesh is not None and mesh.model_parallel > 1:
+            saved["state"] = self._map_moments(
+                saved["state"],
+                lambda name, value: shard_tensor(value, param_spec(name), mesh.model_rank, mesh.model_parallel).to(value.device),
+            )
         try:
             self._optimizer.optimizer.load_state_dict(saved["state"])
         except (KeyError, ValueError) as error:
@@ -636,7 +671,8 @@ class TrainingRun:
             return None
         accumulator = _MeanAccumulator()
         batches = progress_bar(
-            self._manager.validation_batches(), enabled=self._show_progress, desc="validation", unit="batch", leave=False
+            self._manager.validation_batches(self._data_shard()),
+            enabled=self._show_progress, desc="validation", unit="batch", leave=False,
         )
         for batch in batches:
             accumulator.add(self._eval_step(self._to_device(batch_to_arrays(batch))))
@@ -668,20 +704,32 @@ class TrainingRun:
                 skip = self._skip_batches if epoch == resume_epoch else 0
                 self._epoch_batches = skip
                 groups = _group(
-                    self._manager.training_batches(seed=seed + epoch, skip_batches=skip),
+                    self._manager.training_batches(seed=seed + epoch, skip_batches=skip, process_shard=self._data_shard()),
                     self._accumulation,
                     drop_last=True,
                 )
                 progress = progress_bar(enabled=self._show_progress, desc=f"epoch {epoch}", unit="step")
                 for group in groups:
                     microbatches = self._to_device(stack_microbatches(group))
-                    rng = DropoutRng.from_seed(seed + self.global_step, self._device)
-                    host_metrics = self._train_step(microbatches, rng, self.global_step)
+                    rng = DropoutRng.for_mesh(seed + self.global_step, self._device, self._mesh)
+                    utterances = sum(len(batch) for batch in group)
+                    if self._mesh is None:
+                        host_metrics = self._train_step(microbatches, rng, self.global_step)
+                    else:
+                        # Every rank stops after the same step: its stop flag
+                        # and its real rows (filler rows have length 0) are
+                        # summed with the step's metrics.
+                        utterances = sum(int((np.asarray(batch.lengths) > 0).sum()) for batch in group)
+                        host_metrics = self._train_step(
+                            microbatches, rng, self.global_step, (float(self._stop_requested), float(utterances))
+                        )
+                        stop, utterances = host_metrics.pop("extra")
+                        self._stop_requested = stop > 0
                     self.global_step += 1
                     window.add(host_metrics)
                     last_grad_norm = host_metrics.get("grad_norm")
                     window_batches += len(group)
-                    window_utterances += sum(len(batch) for batch in group)
+                    window_utterances += int(utterances)
                     self._epoch_batches += len(group)
                     progress.update(1)
                     progress.set_postfix(step=self.global_step, loss=f"{host_metrics['mean_loss']:.4f}", refresh=False)

@@ -11,7 +11,21 @@
 
 The step updates the model's parameters in place (the torch idiom; JAX
 returns new ones) and returns the JAX step's metric keys, moved to the host
-in one stacked transfer."""
+in one stacked transfer.
+
+Over a ``parallel.mesh.Mesh`` (one process a device) each rank runs its rows
+of the global batch and the step is the one-device step of that batch, as
+JAX's is over its mesh:
+- each microbatch's objective divides this rank's loss by the label count of
+  the whole microbatch (summed over the data group before the forward), and
+  the allophone L2 penalty enters on the first data rank only;
+- after the microbatches, one sum of the gradients over the data group, in
+  flat buckets (no DDP: its hooks would reduce every microbatch);
+- the global norm counts each model-parallel shard once and each replicated
+  parameter once; clipping and the optimizer then run on every rank alike,
+  each on its own shards;
+- the metrics are summed over the data group, so every rank returns the
+  global numbers."""
 
 from __future__ import annotations
 
@@ -19,19 +33,49 @@ import dataclasses
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from allophant_tpu_torch.config import Adam, Architecture, SequenceCrossEntropyLossConfig, SGD, Wav2Vec2PretrainedConfig
 from allophant_tpu_torch.models.allophant import AllophantModel
 from allophant_tpu_torch.models.layers import DropoutRng
 from allophant_tpu_torch.ops.ctc import ctc_loss_sum_heads, sequence_cross_entropy_sum
+from allophant_tpu_torch.parallel.mesh import Mesh, all_reduce
+from allophant_tpu_torch.parallel.sharding import param_spec
+
+#: Bytes of one flat bucket of the gradient all-reduce.
+ALL_REDUCE_BUCKET_BYTES = 64 << 20
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Sequence[torch.Tensor], sharded: Optional[Sequence[bool]] = None, model_group=None) -> torch.Tensor:
     """optax's ``global_norm`` (the 2-norm of all gradients together) as an f32
     scalar, accumulated in f64: an f32 sum of squares over a leaf of millions
-    of elements drifts by 1e-4 on the CPU."""
-    norms = torch._foreach_norm(list(grads), 2, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    of elements drifts by 1e-4 on the CPU. Under tensor parallelism
+    ``sharded`` marks the gradients that are this rank's shard: their squares
+    are summed over ``model_group``, the replicated ones counted once."""
+    norms = torch.stack(torch._foreach_norm(list(grads), 2, dtype=torch.float64))
+    if model_group is None or sharded is None or not any(sharded):
+        return torch.linalg.vector_norm(norms).float()
+    mask = torch.tensor(list(sharded), device=norms.device)
+    squares = norms.square()
+    shard_sum = all_reduce(squares[mask].sum(), model_group)
+    return (squares[~mask].sum() + shard_sum).sqrt().float()
+
+
+def all_reduce_gradients(grads: Sequence[torch.Tensor], group) -> None:
+    """Sums ``grads`` in place over ``group``: the gradients of each dtype
+    flattened into buckets of about ALL_REDUCE_BUCKET_BYTES, one all-reduce a
+    bucket."""
+    if group is None:
+        return
+    buckets: Dict[torch.dtype, list] = {}
+    for grad in grads:
+        dtype_buckets = buckets.setdefault(grad.dtype, [[]])
+        if sum(part.numel() * part.element_size() for part in dtype_buckets[-1]) >= ALL_REDUCE_BUCKET_BYTES:
+            dtype_buckets.append([])
+        dtype_buckets[-1].append(grad)
+    for bucket in (bucket for dtype_buckets in buckets.values() for bucket in dtype_buckets):
+        flat = all_reduce(torch.cat([part.reshape(-1) for part in bucket]), group)
+        torch._foreach_copy_(bucket, [chunk.view_as(part) for chunk, part in zip(flat.split([part.numel() for part in bucket]), bucket)])
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
@@ -118,13 +162,34 @@ def build_loss_plan(architecture: Architecture, has_allophone: bool) -> LossPlan
     return LossPlan(tuple(ctc_heads), tuple(cross_entropy_heads), architecture.projection.allophone_l2_alpha, has_allophone)
 
 
+def label_count(batch: Dict[str, torch.Tensor], loss_plan: LossPlan) -> torch.Tensor:
+    """The objective's denominator of a (micro)batch, an f32 scalar: every CTC
+    head's label lengths, and one label a row (a real row, with
+    ``row_weights``) for each cross-entropy head."""
+    count = torch.zeros((), dtype=torch.float32, device=batch["audio"].device)
+    for name in loss_plan.ctc_heads:
+        count = count + batch[f"label_lengths_{name}"].sum()
+    row_weights = batch.get("row_weights")
+    for name, _smoothing in loss_plan.cross_entropy_heads:
+        count = count + (batch[f"labels_{name}"].shape[0] if row_weights is None else row_weights.sum())
+    return count
+
+
 def multitask_loss(
-    model: AllophantModel, batch: Dict[str, torch.Tensor], loss_plan: LossPlan, rng: Optional[DropoutRng] = None
+    model: AllophantModel,
+    batch: Dict[str, torch.Tensor],
+    loss_plan: LossPlan,
+    rng: Optional[DropoutRng] = None,
+    total_labels: Optional[torch.Tensor] = None,
+    penalty: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(objective, metrics) of one microbatch. ``batch`` keys: audio [B, S],
     lengths [B], language_ids [B], ``labels_<name>`` [B, N] and
     ``label_lengths_<name>`` [B] per head, optional ``row_weights`` [B] (0/1,
-    batch-padding filler rows excluded). ``rng=None`` is deterministic."""
+    batch-padding filler rows excluded). ``rng=None`` is deterministic.
+    ``total_labels`` replaces the batch's own label count as the objective's
+    denominator (a data-parallel rank divides by the whole microbatch's);
+    ``penalty=False`` leaves the allophone L2 penalty out of the objective."""
     predictions = model(batch["audio"], batch["lengths"], batch["language_ids"], rng=rng)
     outputs = predictions.outputs
     row_weights = batch.get("row_weights")
@@ -134,20 +199,18 @@ def multitask_loss(
         row_weights=row_weights,
     )
     total_loss = torch.zeros((), dtype=torch.float32, device=batch["audio"].device)
-    total_length = torch.zeros_like(total_loss)
     for name in loss_plan.ctc_heads:
         total_loss = total_loss + head_losses[name]
-        total_length = total_length + batch[f"label_lengths_{name}"].sum()
     for name, smoothing in loss_plan.cross_entropy_heads:
-        labels = batch[f"labels_{name}"]
         loss = sequence_cross_entropy_sum(
-            outputs[name], predictions.lengths, labels, label_smoothing=smoothing, row_weights=row_weights
+            outputs[name], predictions.lengths, batch[f"labels_{name}"], label_smoothing=smoothing, row_weights=row_weights
         )
         head_losses[name] = loss
         total_loss = total_loss + loss
-        total_length = total_length + (labels.shape[0] if row_weights is None else row_weights.sum())
-    objective = total_loss / total_length.clamp_min(1.0)
-    if loss_plan.has_allophone_penalty:
+    total_length = label_count(batch, loss_plan)
+    denominator = total_length if total_labels is None else total_labels
+    objective = total_loss / denominator.clamp_min(1.0)
+    if loss_plan.has_allophone_penalty and penalty:
         objective = objective + loss_plan.allophone_l2_alpha * model.l2_penalty()
     return objective, {"loss": total_loss, "label_count": total_length, **head_losses}
 
@@ -192,20 +255,37 @@ def _to_host(names: Sequence[str], values: Sequence[torch.Tensor]) -> Dict[str, 
 
 
 def accumulate_gradients(
-    model: AllophantModel, microbatches: Dict[str, torch.Tensor], loss_plan: LossPlan, rng: Optional[DropoutRng]
+    model: AllophantModel,
+    microbatches: Dict[str, torch.Tensor],
+    loss_plan: LossPlan,
+    rng: Optional[DropoutRng],
+    mesh: Optional[Mesh] = None,
+    extra: Sequence[float] = (),
 ) -> torch.Tensor:
     """Sets every parameter's ``.grad`` to the mean over the microbatches
     (leading axis of ``microbatches``) of the objective's gradient, zeros
     where none flows (a frozen prefix); returns the device tensor of the
-    summed metrics, in the order loss, label_count, heads."""
+    summed metrics, in the order loss, label_count, heads, then ``extra``.
+    Over a ``mesh`` the microbatches are this rank's rows: the gradients and
+    the metrics (``extra`` too) are the sums over the data group, i.e. those
+    of the whole batch."""
     parameters = list(model.parameters())
     for parameter in parameters:
         parameter.grad = None
     count = next(iter(microbatches.values())).shape[0]
+    data_group = None if mesh is None else mesh.data_group
+    totals = [None] * count
+    if data_group is not None:
+        # The denominators of every microbatch in one reduce, before the forwards.
+        totals = all_reduce(
+            torch.stack([label_count({key: value[index] for key, value in microbatches.items()}, loss_plan) for index in range(count)]),
+            data_group,
+        )
+    penalty = mesh is None or mesh.data_rank == 0
     summed = None
     for index in range(count):
         microbatch = {key: value[index] for key, value in microbatches.items()}
-        objective, metrics = multitask_loss(model, microbatch, loss_plan, rng)
+        objective, metrics = multitask_loss(model, microbatch, loss_plan, rng, totals[index], penalty)
         objective.backward()
         values = torch.stack(
             [metrics[name].detach().float() for name in ("loss", "label_count", *loss_plan.head_names)]
@@ -216,17 +296,24 @@ def accumulate_gradients(
             parameter.grad = torch.zeros_like(parameter)
         else:
             parameter.grad.div_(count)
-    return summed
+    all_reduce_gradients([parameter.grad for parameter in parameters], data_group)
+    if extra:
+        summed = torch.cat([summed, torch.tensor(list(extra), dtype=summed.dtype, device=summed.device)])
+    return all_reduce(summed, data_group)
 
 
-def make_eval_step(model: AllophantModel, loss_plan: LossPlan) -> Callable:
+def make_eval_step(model: AllophantModel, loss_plan: LossPlan, mesh: Optional[Mesh] = None) -> Callable:
     """A deterministic validation step: batch -> {loss_sum, label_count, per-head
-    loss sums} as host floats."""
+    loss sums} as host floats; over a ``mesh``, of this rank's rows summed
+    over the data group."""
 
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         _objective, metrics = multitask_loss(model, batch, loss_plan)
         names = ("loss", "label_count", *loss_plan.head_names)
+        if mesh is not None and mesh.data_group is not None:
+            summed = all_reduce(torch.stack([metrics[name].detach().float() for name in names]), mesh.data_group)
+            metrics = dict(zip(names, summed))
         values = _to_host(names, [metrics[name] for name in names])
         values["loss_sum"] = values.pop("loss")
         return values
@@ -235,7 +322,11 @@ def make_eval_step(model: AllophantModel, loss_plan: LossPlan) -> Callable:
 
 
 def make_train_step(
-    model: AllophantModel, optimizer: Optimizer, loss_plan: LossPlan, freeze_plan: FreezePlan = FreezePlan()
+    model: AllophantModel,
+    optimizer: Optimizer,
+    loss_plan: LossPlan,
+    freeze_plan: FreezePlan = FreezePlan(),
+    mesh: Optional[Mesh] = None,
 ) -> Callable:
     """A train step over ``microbatches`` (a dict of tensors with a leading
     accumulation axis [A, ...]) with dropout from ``rng`` (None:
@@ -243,17 +334,37 @@ def make_train_step(
     model in place and returns {loss_sum, label_count, mean_loss, grad_norm,
     per-head loss sums} as host floats; ``grad_norm`` is the norm of the
     averaged, freeze-masked gradients before clipping. After the step each
-    parameter's ``.grad`` holds the clipped gradient the optimizer used."""
+    parameter's ``.grad`` holds the clipped gradient the optimizer used.
 
-    def train_step(microbatches: Dict[str, torch.Tensor], rng: Optional[DropoutRng] = None, global_step: int = 0):
-        summed = accumulate_gradients(model, microbatches, loss_plan, rng)
+    Over a ``mesh`` the microbatches are this rank's rows of the global batch
+    (see the module's docstring). ``extra`` values of this rank ride on the
+    metrics' reduce, summed over the data group and their largest taken over
+    the model group; the result then holds them under ``extra`` (the loop's
+    stop flag and row count)."""
+    names = [name for name, _parameter in model.named_parameters()]
+    model_group = None if mesh is None else mesh.model_group
+    sharded = [param_spec(name).sharded for name in names] if model_group is not None else None
+
+    def train_step(
+        microbatches: Dict[str, torch.Tensor],
+        rng: Optional[DropoutRng] = None,
+        global_step: int = 0,
+        extra: Sequence[float] = (),
+    ):
+        summed = accumulate_gradients(model, microbatches, loss_plan, rng, mesh, extra)
+        if extra and model_group is not None:
+            # A flag of one column reaches the others; counts are the same in each.
+            all_reduce(summed[-len(extra) :], model_group, dist.ReduceOp.MAX)
         apply_freeze_plan(model, freeze_plan, global_step)
         grads = [parameter.grad for parameter in model.parameters()]
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, sharded, model_group)
         optimizer.update(grad_norm)
-        names = ("loss_sum", "label_count", *loss_plan.head_names, "grad_norm")
-        metrics = _to_host(names, [*summed, grad_norm])
+        metric_names = ("loss_sum", "label_count", *loss_plan.head_names)
+        values = torch.cat([summed, grad_norm.reshape(1)]).detach().float().cpu().tolist()
+        metrics = dict(zip((*metric_names, "grad_norm"), values[: len(metric_names)] + values[-1:]))
         metrics["mean_loss"] = metrics["loss_sum"] / max(metrics["label_count"], 1.0)
+        if extra:
+            metrics["extra"] = values[len(metric_names) : -1]
         return metrics
 
     return train_step

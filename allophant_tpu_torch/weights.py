@@ -295,12 +295,39 @@ def estimator_from_jax(
     return Estimator(model, precision, device)
 
 
-def seeded_initialization(model: AllophantModel, seed: int) -> AllophantModel:
+def load_full_state(model: AllophantModel, state: Mapping[str, Any], mesh=None) -> AllophantModel:
+    """Loads a one-device state dict (tensors or numpy arrays by name) into
+    ``model``, this rank's shard of it over ``mesh`` (None: the whole)."""
+    from allophant_tpu_torch.parallel.sharding import shard_state
+
+    if mesh is not None and mesh.model_parallel > 1:
+        state = shard_state(state, mesh.model_rank, mesh.model_parallel)
+    else:
+        state = {name: torch.as_tensor(np.asarray(value) if not isinstance(value, torch.Tensor) else value) for name, value in state.items()}
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def seeded_initialization(model: AllophantModel, seed: int, mesh=None) -> AllophantModel:
     """Random weights from a seed, drawn on the model's device (for serving
     tests and benchmarks without a checkpoint): normal weights scaled by
     1/sqrt(fan_in), small normal biases, norm scales near 1, N(0, 1)
     composition embeddings with the unused category rows zeroed. The allophone
-    matrices come from the plan's static tables (``load_static_data``)."""
+    matrices come from the plan's static tables (``load_static_data``). A
+    model sharded over ``mesh``'s model axis gets its shard of the one-device
+    model's weights (drawn whole on its device, then cut)."""
+    if mesh is not None and mesh.model_parallel > 1:
+        from allophant_tpu_torch.parallel.sharding import param_spec
+
+        whole = AllophantModel(
+            model.architecture, model.plan, model.dtype, model.head_dtype, device=next(model.parameters()).device,
+            param_dtype=next(model.parameters()).dtype,
+        )
+        # The static tables (buffers, allophone matrices) are replicated.
+        whole.load_state_dict(
+            {name: value for name, value in model.state_dict().items() if not param_spec(name).sharded}, strict=False
+        )
+        return load_full_state(model, seeded_initialization(whole, seed).state_dict(), mesh)
     device = next(model.parameters()).device
     generator = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():

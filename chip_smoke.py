@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch port (allophant_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi-gpu   # the build and phase 18 alone
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -101,7 +102,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      then --restore (picks interrupted.ckpt, resumes at the recorded batch,
      reaches the last epoch); launches counted in each child, twins
      forbidden; an MP3 round trip of one clip if the system libraries are
-     there.
+     there;
+ 18. multi-GPU: the CTC gradient at 500 and 1,000 frames against float64
+     (no farther than JAX's float32 CTC), then two ranks, one process each
+     (parallel/: NCCL over two cards, or gloo with both on card 0, said on
+     its own line; the kernels built before they start): the full-width
+     "mixed" flagship at dp = 2 (A = 2, 4 rows x 10 s a rank; K5 and K4 48
+     times a step and K2 twice on each rank, twins forbidden; step ms,
+     gradient all-reduce ms, peak GiB), a float32 4-layer step at dp = 2 and
+     at tp = 2 held to this process's one-device step, a tp = 2 step with
+     attention dropout, ``use_data_parallel`` float32 greedy and beam-4
+     predictions of the serving requests held to one device on the same
+     rows (their distance from one device on the whole batches must equal
+     one device's on the same rows), and ``train`` over two ranks on the
+     train CLI phase's corpus at 2 layers: SIGTERM to rank 1 alone, both
+     stop after the same step, one ``interrupted.ckpt``, ``--restore`` to
+     the last epoch; on two or more cards also a plain full-width
+     ``train`` that spawns a rank a card, stopped by SIGTERM to it.
 Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -2413,7 +2430,8 @@ def train_cli_child(arguments: list) -> int:
     main(arguments)`` in this process (its own signal handlers), with the
     plain twins forbidden on the card, then prints one JSON line: the
     launches of each counted kernel, the seconds of each ``Estimator.save``
-    and of ``Estimator.restore``."""
+    and of ``Estimator.restore``. ``--layers N`` first cuts the encoder of
+    every model it builds to N layers."""
     import logging
 
     sys.path.insert(0, str(HERE))
@@ -2438,6 +2456,17 @@ def train_cli_child(arguments: list) -> int:
         return value
 
     Estimator.save, Estimator.restore = timed_save, classmethod(timed_restore)
+    if arguments[:1] == ["--layers"]:
+        from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+
+        shallow = Wav2Vec2Architecture(num_hidden_layers=int(arguments[1]))
+        arguments = arguments[2:]
+        from_config = Estimator.from_config.__func__
+
+        def shallow_from_config(cls, config, feature_size, sample_rate, graph, indexer=None, architecture=None, *rest, **kwargs):
+            return from_config(cls, config, feature_size, sample_rate, graph, indexer, architecture or shallow, *rest, **kwargs)
+
+        Estimator.from_config = classmethod(shallow_from_config)
     on_cpu = "--cpu" in arguments
     counters = kernel_counters()
     for counter in counters.values():
@@ -2480,24 +2509,15 @@ def run_train_cli(arguments: list, log: Path, interrupt: bool, timeout: float):
     return code, lines, reports[0] if reports else None, stopped
 
 
-def phase_train_cli(results: dict, root: Path) -> None:
-    """``allophant_tpu_torch.cli.run train`` on a Common Voice corpus, as a
-    user runs it, in child processes so that the signal, the handlers and the
-    exit code are real: the full-width flagship from the demo config
-    (microbatches of at most 8 x 10 s at A = 2, validation at each epoch's
-    end, CLI_EPOCHS epochs), the demo table, a corpus of 2
-    languages x 16 WAV clips of 2-10 s plus 4 dev clips each, ``-d -s DIR -w 2``.
-    SIGTERM after the first statistics line: exit 0 and ``interrupted.ckpt``
-    with optimizer state. Then ``--restore``: it picks ``interrupted.ckpt``,
-    resumes at the recorded batch and reaches the last epoch, ending at the
-    step count of an uninterrupted run. Launches are counted in each child,
-    twins forbidden. If the system MP3 libraries are present, one clip is
-    encoded, decoded and compared with its WAV."""
+def write_train_cli_inputs(root: Path):
+    """The train CLI phase's inputs under ``root``: a Common Voice corpus of
+    2 languages x 16 WAV clips of 2-10 s plus 4 dev clips each (``cv``), the
+    demo table (``table.csv``) and the demo config at microbatches of at most
+    TRAIN_BATCH x 10 s, A = TRAIN_ACCUMULATION, CLI_EPOCHS epochs
+    (``train_cli_config.json``). Returns (corpus, table path, config)."""
     from allophant_tpu_torch.demo import demo_config_dict, demo_feature_table_csv
     from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
-    from allophant_tpu_torch.training.checkpoint import load_checkpoint
 
-    start = time.perf_counter()
     table = PhoneticAttributeIndexer("phoible", demo_feature_table_csv())
     corpus = write_common_voice_corpus(
         root / "cv", {language: table.phoneme_inventory(language) for language in CLI_LANGUAGES}, (2, 10), seed=7
@@ -2513,6 +2533,27 @@ def phase_train_cli(results: dict, root: Path) -> None:
         maximum_iterations=CLI_EPOCHS,
     )
     config["data"]["languages"] = list(CLI_LANGUAGES)
+    (root / "train_cli_config.json").write_text(json.dumps(config), encoding="utf-8")
+    return corpus, table_path, config
+
+
+def phase_train_cli(results: dict, root: Path) -> None:
+    """``allophant_tpu_torch.cli.run train`` on a Common Voice corpus, as a
+    user runs it, in child processes so that the signal, the handlers and the
+    exit code are real: the full-width flagship from the demo config
+    (microbatches of at most 8 x 10 s at A = 2, validation at each epoch's
+    end, CLI_EPOCHS epochs), the demo table, a corpus of 2
+    languages x 16 WAV clips of 2-10 s plus 4 dev clips each, ``-d -s DIR -w 2``.
+    SIGTERM after the first statistics line: exit 0 and ``interrupted.ckpt``
+    with optimizer state. Then ``--restore``: it picks ``interrupted.ckpt``,
+    resumes at the recorded batch and reaches the last epoch, ending at the
+    step count of an uninterrupted run. Launches are counted in each child,
+    twins forbidden. If the system MP3 libraries are present, one clip is
+    encoded, decoded and compared with its WAV."""
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    start = time.perf_counter()
+    corpus, table_path, config = write_train_cli_inputs(root)
     save_path = root / "checkpoints"
     arguments = [
         "train", str(corpus), "-t", "common-voice", "-j", json.dumps(config), "-a", str(table_path),
@@ -2609,6 +2650,544 @@ def phase_mp3(wav: Path) -> None:
     check(decoded_rate == rate and snr >= 6, "mp3: the decoded clip differs from its WAV")
 
 
+# The multi-GPU phase: two ranks; the full-width "mixed" steps; the float32
+# comparisons' 4-layer depth and audio; the CLI's depth (its checkpoints hold
+# Adam's moments: 3.5 GiB at 24 layers).
+MULTI_RANKS, MULTI_STEPS, MULTI_F32_LAYERS, MULTI_F32_SAMPLES, MULTI_CLI_LAYERS = 2, 2, 4, 4 * SAMPLE_RATE, 2
+# JAX's float32 CTC gradient's largest distance from the float64 one at 500
+# and 1,000 frames (tools/torch_ctc_precision.py; logits N(0, 3^2) of
+# [2, T, 40], 30 labels a row).
+CTC_JAX_DISTANCE = {500: 1.217e-4, 1000: 2.748e-4}
+# float32 card limits: metrics 1e-5 relative (grad_norm 3e-5), gradients and
+# Adam's first moment within 1e-3 of each leaf's largest (second moment
+# 2e-3; a leaf that is zero in exact arithmetic within 1e-6 of the largest of
+# all), log-probs 1e-4.
+MULTI_METRIC_RTOL, MULTI_NORM_RTOL, MULTI_SHARE, MULTI_SECOND_SHARE, MULTI_FLOOR, MULTI_LOG_PROB_ATOL = (
+    1e-5, 3e-5, 1e-3, 2e-3, 1e-6, 1e-4,
+)
+
+
+def multi_gpu_route():
+    """(the two ranks' devices, their group's backend): two cards (NCCL), or
+    card 0 twice (gloo: NCCL refuses two ranks on one card)."""
+    from allophant_tpu_torch.parallel.mesh import backend
+
+    cards = min(torch.cuda.device_count(), MULTI_RANKS)
+    devices = [f"cuda:{rank % cards}" for rank in range(MULTI_RANKS)]
+    return devices, backend(devices)
+
+
+# Batch axis of each prediction array: grids [H, B, T'+1], beam tokens
+# [H, T, B, K], beam scores [H, B, K], log-probs [B, T, C].
+MULTI_BATCH_AXES = {"grid": 1, "beam_tokens": 2, "beam_scores": 1}
+
+
+def multi_gpu_requests(estimator, share=None) -> dict:
+    """Float32 greedy grids, beam-4 tokens and scores and batch-first
+    log-probs of the serving requests, on the host. With ``share=(rank,
+    ranks)``: of the rows ``Estimator.use_data_parallel`` gives that data
+    rank (the batch padded with copies of its last row), alone."""
+    from allophant_tpu_torch.data.batch import Batch
+
+    heads = tuple(estimator.classes)
+    results = {}
+    for index, (_name, request) in enumerate(serving_requests()):
+        batch, features = request["batch"], request.get("target_feature_indices")
+        if share is not None:
+            rank, ranks = share
+            size = len(batch.lengths)
+            local = -(-size // ranks)
+            rows = np.minimum(np.arange(rank * local, (rank + 1) * local), size - 1)
+            language_ids = np.broadcast_to(np.asarray(batch.language_ids), (size,))
+            batch = Batch(np.asarray(batch.audio_features)[rows], np.asarray(batch.lengths)[rows], language_ids[rows])
+        allophones = request.get("map_allophones", False)
+        grid, _lengths = estimator.predict_decoded(batch, features, heads=heads, map_allophones=allophones)
+        collected, scores, _lengths = estimator.predict_beam_decoded(batch, features, heads=heads, beam_width=4, map_allophones=allophones)
+        log_probs = estimator.predict(batch, features, time_major=False).outputs
+        results[index] = {
+            "grid": grid.to(torch.int32).cpu().numpy(),
+            "beam_tokens": collected.cpu().numpy(),
+            "beam_scores": scores.cpu().numpy(),
+            **{f"log_probs/{name}": value.cpu().numpy() for name, value in log_probs.items()},
+        }
+    return results
+
+
+def multi_gpu_joined(shares: list, sizes: dict) -> dict:
+    """The whole batches' arrays from each data rank's ``multi_gpu_requests``
+    (its share), joined along the batch axis and cut to the real rows."""
+    return {
+        index: {
+            key: np.take(
+                np.concatenate([share[index][key] for share in shares], axis=MULTI_BATCH_AXES.get(key, 0)),
+                np.arange(sizes[index]), axis=MULTI_BATCH_AXES.get(key, 0),
+            )
+            for key in shares[0][index]
+        }
+        for index in shares[0]
+    }
+
+
+def multi_gpu_distance(got: dict, expected: dict) -> tuple:
+    """(largest log-prob or beam-score distance, integer cells that differ);
+    the distances in float64, where a float32 difference is exact."""
+    worst, differing = 0.0, 0
+    for index, arrays in expected.items():
+        for key, value in arrays.items():
+            check(got[index][key].shape == value.shape, f"multi-GPU serve request {index} {key}: shape {got[index][key].shape} vs {value.shape}")
+            if key.startswith("log_probs/") or key == "beam_scores":
+                worst = max(worst, float(np.abs(got[index][key].astype(np.float64) - value).max()))
+            else:
+                differing += int((got[index][key] != value).sum())
+    return worst, differing
+
+
+def multi_gpu_mixed_steps(mesh, device) -> dict:
+    """MULTI_STEPS steps of the full-width training flagship ("mixed", the
+    flagship's dropout, A = 2) on this rank's 4 rows of B = 8 x 10 s, twins
+    forbidden, launches counted; step ms, the gradient all-reduce's ms (the
+    same buckets, timed alone after the steps) and this rank's peak GiB."""
+    from allophant_tpu_torch.demo import build_flagship_for_training
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.parallel.mesh import process_local_slice
+    from allophant_tpu_torch.training import train_step
+
+    torch.cuda.reset_peak_memory_stats(device)
+    config, model = build_flagship_for_training(seed=0, precision="mixed", device=device, mesh=mesh)
+    optimizer = train_step.create_optimizer(config, model.architecture.hidden_size, model.parameters())
+    step = train_step.make_train_step(
+        model, optimizer, train_step.build_loss_plan(config, True), train_step.build_freeze_plan(config.acoustic_model), mesh
+    )
+    microbatches = training_microbatches(model, TRAIN_ACCUMULATION, TRAIN_BATCH, TRAIN_SECONDS * SAMPLE_RATE, "cpu")
+    rows = process_local_slice(TRAIN_BATCH, mesh)
+    local = {key: value[:, rows].contiguous().to(device) for key, value in microbatches.items()}
+    readings = []
+    with TwinsForbidden():
+        for index in range(MULTI_STEPS):
+            rng = DropoutRng.for_mesh((config.seed or 0) + index, device, mesh)
+            started = time.perf_counter()
+            metrics, launches = counted(lambda: step(local, rng, index))
+            readings.append({"ms": (time.perf_counter() - started) * 1e3, "launches": launches, "mean_loss": metrics["mean_loss"], "grad_norm": metrics["grad_norm"]})
+    grads = [parameter.grad for parameter in model.parameters()]
+    reduce_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        started = time.perf_counter()
+        train_step.all_reduce_gradients(grads, mesh.data_group)
+        torch.cuda.synchronize(device)
+        reduce_ms.append((time.perf_counter() - started) * 1e3)
+    gradient_bytes = sum(grad.numel() * grad.element_size() for grad in grads)
+    return {
+        "steps": readings,
+        "all_reduce_ms": float(np.median(reduce_ms)),
+        "gradient_bytes": gradient_bytes,
+        "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+    }
+
+
+def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_path: str) -> None:
+    """One rank of the multi-GPU phase (spawned by ``parallel.launch.spawn``):
+    the full-width mixed dp = 2 steps, the float32 4-layer dp = 2 and
+    tp = 2 steps (and a tp = 2 step with attention dropout, for K5 at 8
+    heads), and ``use_data_parallel``'s float32 predictions of the serving
+    requests, each with twins forbidden and launches counted. Writes its
+    readings to ``output_path`` with its rank in the name; rank 0 also the
+    whole gradients and moments of the float32 steps and the predictions."""
+    import warnings as warning_filters
+
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.parallel import dryrun
+    from allophant_tpu_torch.parallel.mesh import create_mesh
+    from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
+
+    warning_filters.simplefilter("ignore", SingletonFeatureWarning)
+    inputs = torch.load(inputs_path, weights_only=False)
+    data_mesh = create_mesh(MULTI_RANKS, 1)
+    model_mesh = create_mesh(1, MULTI_RANKS)
+    results = {"device": str(device), "mixed": multi_gpu_mixed_steps(data_mesh, device)}
+    torch.cuda.empty_cache()
+    shallow = Wav2Vec2Architecture(num_hidden_layers=MULTI_F32_LAYERS)
+    for label, mesh, architecture, seed in (
+        ("f32_dp", data_mesh, shallow, None),
+        ("f32_tp", model_mesh, shallow, None),
+        ("tp_dropout", model_mesh, dataclasses.replace(shallow, hidden_dropout=0.0, activation_dropout=0.0), 5),
+    ):
+        with TwinsForbidden():
+            (metrics, tensors), launches = counted(
+                lambda: dryrun.sharded_step(mesh, device, inputs["f32_microbatches"], None, seed, architecture, gather=seed is None)
+            )
+        results[label] = {"metrics": metrics, "launches": launches, "tensors": tensors if rank == 0 else None}
+        torch.cuda.empty_cache()
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+
+    estimator = dryrun.serving_flagship(device, architecture=Wav2Vec2Architecture()).use_data_parallel(data_mesh)
+    beam_search_cuda.launches = backtrace_cuda.launches = 0
+    with TwinsForbidden():
+        predictions, launches = counted(lambda: multi_gpu_requests(estimator))
+    launches.update(beam_search=beam_search_cuda.launches, beam_backtrace=backtrace_cuda.launches)
+    results["serve"] = {"launches": launches, "predictions": predictions if rank == 0 else None}
+    torch.save(results, output_path.format(rank=rank))
+
+
+def check_leaves(got: dict, expected: dict, share: float, label: str) -> float:
+    """Per leaf: within ``share`` of the leaf's largest magnitude, or
+    MULTI_FLOOR of the largest of all leaves; returns the worst share."""
+    check(set(got) == set(expected), f"{label}: other leaves")
+    floor = MULTI_FLOOR * max(np.abs(value).max() for value in expected.values())
+    worst = 0.0
+    for name, value in expected.items():
+        scale = max(np.abs(value).max(), floor / share)
+        error = float(np.abs(got[name] - value).max())
+        worst = max(worst, error / scale)
+        check(error <= share * scale, f"{label} {name}: {error:.3e} off, limit {share * scale:.3e}")
+    return worst
+
+
+def phase_ctc_long(card: str) -> None:
+    """Part of the CTC repair, on the card: at 500 and 1,000 frames the port's
+    CTC gradient (f32 log-probs, F.ctc_loss's recursion in f64) lies no
+    farther from the float64 gradient than JAX's float32 CTC does."""
+    from allophant_tpu_torch.ops import ctc
+
+    for time_steps, limit in CTC_JAX_DISTANCE.items():
+        rng = np.random.default_rng(time_steps)
+        logits = (3 * rng.standard_normal((2, time_steps, 40))).astype(np.float32)
+        labels = torch.from_numpy(rng.integers(1, 40, (2, 30))).cuda()
+        label_lengths, lengths = torch.full((2,), 30).cuda(), torch.full((2,), time_steps).cuda()
+        tensor = torch.from_numpy(logits).cuda().requires_grad_()
+        ctc.ctc_loss_sum_heads([("head", tensor, labels, label_lengths)], lengths)["head"].backward()
+        exact = torch.from_numpy(logits.astype(np.float64)).cuda().requires_grad_()
+        F.ctc_loss(torch.log_softmax(exact, -1).transpose(0, 1), labels, lengths, label_lengths, reduction="sum").backward()
+        distance = float((tensor.grad.double() - exact.grad).abs().max())
+        print(f"ctc: T = {time_steps}: the port's gradient {distance:.3e} from float64 (JAX float32: {limit:.3e}); {card}", flush=True)
+        check(distance <= limit, f"ctc: T = {time_steps}: {distance:.3e} from float64, JAX's float32 lies {limit:.3e}")
+
+
+def run_train_cli_ranks(arguments: list, root: Path, label: str, interrupt: bool, timeout: float):
+    """The train CLI in MULTI_RANKS child processes under torchrun's
+    environment variables (``chip_smoke.py CHILD_FLAG --layers N ...``); with
+    ``interrupt``, SIGTERM to the last rank alone once rank 0's first
+    statistics line is out. Returns (exit codes, rank 0's stdout lines, the
+    ranks' reports, the last rank's stdout lines)."""
+    import signal
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    processes, logs = [], []
+    for rank in range(MULTI_RANKS):
+        environment = {
+            **os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(MULTI_RANKS),
+            "LOCAL_WORLD_SIZE": str(MULTI_RANKS), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+        }
+        logs.append(open(root / f"{label}_rank{rank}.log", "w", encoding="utf-8"))
+        processes.append(
+            subprocess.Popen(
+                [sys.executable, str(HERE / "chip_smoke.py"), CHILD_FLAG, "--layers", str(MULTI_CLI_LAYERS), *arguments],
+                stdout=subprocess.PIPE, stderr=logs[-1], text=True, cwd=str(HERE), env=environment,
+            )
+        )
+    deadline = time.perf_counter() + timeout
+    lines, signalled = [], False
+    try:
+        for line in processes[0].stdout:
+            lines.append(line.rstrip("\n"))
+            if interrupt and not signalled and re.match(r"epoch \d+ step \d+:", line):
+                processes[-1].send_signal(signal.SIGTERM)
+                signalled = True
+            check(time.perf_counter() < deadline, f"{label}: ran past {timeout} s")
+        others = processes[-1].stdout.read().splitlines()
+        codes = [process.wait(timeout=max(deadline - time.perf_counter(), 1)) for process in processes]
+    finally:
+        for process, log in zip(processes, logs):
+            if process.poll() is None:
+                process.kill()
+                process.wait()
+            log.close()
+    reports = [json.loads(line.split(" ", 1)[1]) for line in (lines, others) for line in line if line.startswith("train-cli-child ")]
+    return codes, lines, reports, others
+
+
+def phase_multi_gpu_cli(results: dict, root: Path, card: str) -> None:
+    """``allophant train`` over two ranks (torchrun's variables) on the train
+    CLI phase's Common Voice corpus, the flagship cut to MULTI_CLI_LAYERS
+    layers: SIGTERM to the last rank after rank 0's first statistics line
+    stops both after the same step, rank 0 alone writes ``interrupted.ckpt``
+    and reports it, and ``--restore`` on both resumes to the last epoch;
+    launches counted on every rank, twins forbidden."""
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    config = json.loads((root / "train_cli_config.json").read_text(encoding="utf-8"))
+    save_path = root / "multi_checkpoints"
+    arguments = [
+        "train", str(root / "cv"), "-t", "common-voice", "-j", json.dumps(config), "-a", str(root / "table.csv"),
+        "-d", "-s", str(save_path),
+    ]
+    runs = []
+    for interrupt in (True, False):
+        label = f"multi_cli_{len(runs)}"
+        started = time.perf_counter()
+        codes, lines, reports, others = run_train_cli_ranks(
+            arguments if interrupt else [*arguments, "--restore"], root, label, interrupt, timeout=600
+        )
+        if any(codes) or len(reports) != MULTI_RANKS:
+            for rank in range(MULTI_RANKS):
+                print((root / f"{label}_rank{rank}.log").read_text(encoding="utf-8", errors="replace")[-3000:], flush=True)
+        check(not any(codes) and len(reports) == MULTI_RANKS, f"{label}: exit codes {codes}, {len(reports)} reports")
+        check(not any("Training interrupted" in line or re.match(r"epoch \d+ step", line) for line in others), f"{label}: the last rank printed")
+        for report in reports:
+            for name, count in report["launches"].items():
+                results[name] += count
+        runs.append((lines, reports))
+        statistics = [line for line in lines if re.match(r"epoch \d+ step \d+:", line)]
+        print(
+            f"multi-GPU train CLI run {len(runs)} ({'SIGTERM to rank 1 after the first statistics line' if interrupt else '--restore'}):"
+            f" exit {codes} in {time.perf_counter() - started:.1f} s; statistics {statistics};"
+            f" launches by rank {[report['launches'] for report in reports]}; saves by rank {[report['saves'] for report in reports]}; {card}",
+            flush=True,
+        )
+    first_lines = runs[0][0]
+    check(sum("Training interrupted; state saved to" in line for line in first_lines) == 1, "multi-GPU train CLI: interrupted.ckpt not reported once")
+    interrupted = load_checkpoint(str(save_path / "interrupted.ckpt"))
+    final = load_checkpoint(str(save_path / f"epoch-{CLI_EPOCHS}.ckpt"))
+    check(bool(interrupted.optimizer_state) and int(interrupted.epoch.step) > 0, f"multi-GPU train CLI: interrupted at {interrupted.epoch}")
+    check(int(final.epoch.epoch) == CLI_EPOCHS, f"multi-GPU train CLI: resumed run ended at {final.epoch}")
+    for lines, reports in runs:
+        launches = [report["launches"] for report in reports]
+        check(launches[0] == launches[1], f"multi-GPU train CLI: the ranks launched differently: {launches}")
+        check(launches[0]["attention_dropout"] > 0 and launches[0]["attention_backward"] == launches[0]["attention_dropout"],
+              f"multi-GPU train CLI: launches {launches[0]}")
+    print(
+        f"multi-GPU train CLI: both ranks stopped at {interrupted.epoch}; resumed to {final.epoch}; checkpoints"
+        f" {sorted(path.name for path in save_path.iterdir())}",
+        flush=True,
+    )
+
+
+def phase_multi_gpu_launch(root: Path, card: str) -> None:
+    """A plain ``allophant train`` (no torchrun) on MULTI_RANKS visible cards
+    (``CUDA_VISIBLE_DEVICES``), the full-width flagship on the train CLI
+    phase's corpus: the CLI spawns one rank a card over NCCL. SIGTERM to the
+    launching process after the first statistics line reaches every rank
+    (each logs it), they stop after the same step, and the launcher exits 0
+    with ``interrupted.ckpt`` written once. Needs MULTI_RANKS cards."""
+    import signal
+
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(index) for index in range(torch.cuda.device_count())]
+    save_path = root / "launch_checkpoints"
+    config = (root / "train_cli_config.json").read_text(encoding="utf-8")
+    arguments = [
+        "train", str(root / "cv"), "-t", "common-voice", "-j", config, "-a", str(root / "table.csv"), "-d", "-s", str(save_path),
+    ]
+    log_path = root / "multi_launch.log"
+    started = time.perf_counter()
+    with open(log_path, "w", encoding="utf-8") as log:
+        launcher = subprocess.Popen(
+            [sys.executable, "-m", "allophant_tpu_torch.cli.run", *arguments],
+            stdout=subprocess.PIPE, stderr=log, text=True, cwd=str(HERE),
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ",".join(cards[:MULTI_RANKS]), "PYTHONPATH": str(HERE)},
+        )
+        lines, signalled = [], None
+        try:
+            for line in launcher.stdout:
+                lines.append(line.rstrip("\n"))
+                if signalled is None and re.match(r"epoch \d+ step \d+:", line):
+                    launcher.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter()
+            code = launcher.wait(timeout=300)
+        finally:
+            if launcher.poll() is None:
+                launcher.send_signal(signal.SIGTERM)
+                launcher.send_signal(signal.SIGTERM)
+                time.sleep(5)
+                launcher.kill()
+                launcher.wait()
+    errors = log_path.read_text(encoding="utf-8", errors="replace")
+    if code != 0:
+        print(errors[-4000:], flush=True)
+    check(code == 0 and signalled is not None, f"multi-GPU plain launch: exit code {code}, signalled {signalled is not None}")
+    received = errors.count("Received SIGTERM")
+    check(received == MULTI_RANKS, f"multi-GPU plain launch: {received} ranks logged the SIGTERM, expected {MULTI_RANKS}")
+    check(sum("Training interrupted; state saved to" in line for line in lines) == 1, "multi-GPU plain launch: interrupted.ckpt not reported once")
+    interrupted = load_checkpoint(str(save_path / "interrupted.ckpt"))
+    check(bool(interrupted.optimizer_state) and int(interrupted.epoch.step) > 0, f"multi-GPU plain launch: interrupted at {interrupted.epoch}")
+    print(
+        f"multi-GPU plain launch on cards {cards[:MULTI_RANKS]} (CUDA_VISIBLE_DEVICES), full width: SIGTERM to the launcher"
+        f" reached {received} ranks; exit {code} in {time.perf_counter() - started:.1f} s"
+        f" ({time.perf_counter() - signalled:.1f} s from the signal); stopped at {interrupted.epoch};"
+        f" statistics {[line for line in lines if re.match(r'epoch \d+ step \d+:', line)]}; {card}",
+        flush=True,
+    )
+
+
+def phase_multi_gpu(results: dict, root: Path) -> None:
+    """Two ranks on the card(s), one process each (``parallel/``): NCCL over
+    two cards, or gloo with both on card 0 (correctness, not scaling). The
+    kernels are built (phase 2) before the ranks start. Then:
+    1. the full-width flagship, "mixed", A = 2, global B = 8 x 10 s (4 rows a
+       rank), MULTI_STEPS steps at dp = 2: K5 and K4 48 times a step and K2
+       twice on each rank, twins forbidden; step ms, all-reduce ms, peak GiB;
+    2. a full-width 4-layer flagship in float32, dropout off: one dp = 2 and
+       one tp = 2 step (8 heads of 64 a rank), each equal to this process's
+       one-device step; a tp = 2 step with attention dropout (K5 at 8 heads);
+    3. ``use_data_parallel`` greedy and beam-4 over the serving requests in
+       float32: log-probs within 1e-4 of one device, grid cells that differ
+       counted (0 expected);
+    4. ``allophant train`` over two ranks (``phase_multi_gpu_cli``);
+    5. the CTC gradient at 500 and 1,000 frames (``phase_ctc_long``)."""
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.parallel import dryrun, launch
+
+    card = phase_card()
+    devices, backend = multi_gpu_route()
+    print(f"multi-GPU: {MULTI_RANKS} ranks on {devices} over {backend}"
+          f"{'' if backend == 'nccl' else ' (one card: two ranks share it, which proves correctness, not scaling)'}", flush=True)
+    started = time.perf_counter()
+    phase_ctc_long(card)
+
+    # This process's one-device references.
+    shallow = Wav2Vec2Architecture(num_hidden_layers=MULTI_F32_LAYERS)
+    _config, template = dryrun.tiny_flagship("cpu", architecture=dataclasses.replace(shallow, num_hidden_layers=1))
+    microbatches = {
+        key: value.numpy()
+        for key, value in training_microbatches(template, TRAIN_ACCUMULATION, TRAIN_BATCH, MULTI_F32_SAMPLES, "cpu", seed=3).items()
+    }
+    del template
+    reference_metrics, reference = dryrun.sharded_step(None, "cuda", microbatches, None, None, shallow)
+    torch.cuda.empty_cache()
+    estimator = dryrun.serving_flagship("cuda", architecture=Wav2Vec2Architecture())
+    whole_batches = multi_gpu_requests(estimator)
+    sizes = {index: len(request["batch"].lengths) for index, (_name, request) in enumerate(serving_requests())}
+    same_rows = multi_gpu_joined([multi_gpu_requests(estimator, (rank, MULTI_RANKS)) for rank in range(MULTI_RANKS)], sizes)
+    del estimator
+    torch.cuda.empty_cache()
+
+    workdir = root / "multi_gpu"
+    workdir.mkdir()
+    inputs, outputs = str(workdir / "inputs.pt"), str(workdir / "rank{rank}.pt")
+    torch.save({"f32_microbatches": microbatches}, inputs)
+    spawned = time.perf_counter()
+    launch.spawn(multi_gpu_rank, str(workdir), devices, (inputs, outputs))
+    ranks = [torch.load(outputs.format(rank=rank), weights_only=False) for rank in range(MULTI_RANKS)]
+    print(f"multi-GPU: ranks ran in {time.perf_counter() - spawned:.1f} s", flush=True)
+
+    layers = Wav2Vec2Architecture().num_hidden_layers
+    for rank, result in enumerate(ranks):
+        mixed = result["mixed"]
+        step_ms = ", ".join(f"{reading['ms']:.1f}" for reading in mixed["steps"])
+        for index, reading in enumerate(mixed["steps"]):
+            expected = {
+                "oneshot_attention": 0, "attention_dropout": TRAIN_ACCUMULATION * layers,
+                "attention_backward": TRAIN_ACCUMULATION * layers, "dropout_mask": 0, "frame_encoder": TRAIN_ACCUMULATION,
+            }
+            check(reading["launches"] == expected, f"multi-GPU rank {rank} step {index}: launches {reading['launches']}, expected {expected}")
+            check(np.isfinite(reading["mean_loss"]) and np.isfinite(reading["grad_norm"]), f"multi-GPU rank {rank}: non-finite step")
+            for name, count in reading["launches"].items():
+                results[name] += count
+        print(
+            f"multi-GPU rank {rank} ({result['device']}): mixed full-width dp = 2 steps of 4 rows x 10 s at A = 2:"
+            f" {step_ms} ms"
+            f" (loss {mixed['steps'][-1]['mean_loss']:.4f}, grad_norm {mixed['steps'][-1]['grad_norm']:.4f});"
+            f" gradient all-reduce {mixed['all_reduce_ms']:.2f} ms for {mixed['gradient_bytes'] / 2**20:.1f} MiB over {backend};"
+            f" peak {mixed['peak_gib']:.2f} GiB; launches a step {mixed['steps'][0]['launches']}; {card}",
+            flush=True,
+        )
+        check(mixed["steps"][-1]["mean_loss"] == ranks[0]["mixed"]["steps"][-1]["mean_loss"], "multi-GPU: the ranks' losses differ")
+        for label in ("f32_dp", "f32_tp", "tp_dropout", "serve"):
+            for name, count in result[label]["launches"].items():
+                results[name] += count
+
+    f32_layers = MULTI_F32_LAYERS
+    for label in ("f32_dp", "f32_tp"):
+        got = ranks[0][label]
+        for key, value in reference_metrics.items():
+            rtol = MULTI_NORM_RTOL if key == "grad_norm" else MULTI_METRIC_RTOL
+            check(abs(got["metrics"][key] - value) <= rtol * abs(value), f"multi-GPU {label}: {key} {got['metrics'][key]} vs one device {value}")
+        worst = {
+            kind: check_leaves(
+                got["tensors"][kind], reference[kind], MULTI_SECOND_SHARE if kind == "exp_avg_sq" else MULTI_SHARE, f"multi-GPU {label} {kind}"
+            )
+            for kind in ("grads", "exp_avg", "exp_avg_sq")
+        }
+        # Float32 attention without dropout: K1 forward, K4 backward.
+        expected = {"oneshot_attention": f32_layers * (TRAIN_ACCUMULATION + 1), "attention_dropout": 0,
+                    "attention_backward": f32_layers * TRAIN_ACCUMULATION, "dropout_mask": 0, "frame_encoder": TRAIN_ACCUMULATION + 1}
+        check(got["launches"] == expected, f"multi-GPU {label}: launches {got['launches']}, expected {expected}")
+        print(
+            f"multi-GPU {label}: float32 {f32_layers}-layer step equals one device: loss {got['metrics']['mean_loss']:.6f}"
+            f" vs {reference_metrics['mean_loss']:.6f}, grad_norm {got['metrics']['grad_norm']:.6f} vs {reference_metrics['grad_norm']:.6f};"
+            f" worst share of a leaf's largest {worst}; launches {got['launches']}",
+            flush=True,
+        )
+    dropout_launches = ranks[0]["tp_dropout"]["launches"]
+    check(dropout_launches["attention_dropout"] == f32_layers * TRAIN_ACCUMULATION, f"multi-GPU tp dropout: launches {dropout_launches}")
+    print(f"multi-GPU tp = 2 step with attention dropout (K5 and K4 at 8 heads of 64): launches {dropout_launches}", flush=True)
+
+    # The ranks against one device on the same rows (each rank's share run
+    # alone), which they must equal; and against one device on the whole
+    # batches, which differs by the float32 GEMMs' and convolutions' rounding
+    # at another batch size (cuBLAS and cuDNN pick kernels by shape), printed.
+    served = ranks[0]["serve"]["predictions"]
+    worst, differing = multi_gpu_distance(served, same_rows)
+    whole_worst, whole_differing = multi_gpu_distance(served, whole_batches)
+    floor_worst, floor_differing = multi_gpu_distance(same_rows, whole_batches)
+    print(
+        f"multi-GPU use_data_parallel over {len(sizes)} serving requests (float32, greedy and beam 4): against one device on the"
+        f" same rows: log-probs and beam scores {worst:.3e} off (limit {MULTI_LOG_PROB_ATOL}), {differing} grid and beam cells differ;"
+        f" against one device on the whole batches: {whole_worst:.3e} off, {whole_differing} cells differ (one device, whole"
+        f" batches against the same rows in {MULTI_RANKS} shares: {floor_worst:.3e}, {floor_differing} cells);"
+        f" launches a rank {[result['serve']['launches'] for result in ranks]}",
+        flush=True,
+    )
+    check(worst <= MULTI_LOG_PROB_ATOL, f"multi-GPU serve: log-probs {worst:.3e} from one device on the same rows")
+    # The ranks stand as far from the whole batches as one device on the same
+    # rows does, up to their own distance from it: nothing rank-specific adds.
+    check(abs(whole_worst - floor_worst) <= worst and (differing or whole_differing == floor_differing),
+          f"multi-GPU serve: against the whole batches {whole_worst:.3e} and {whole_differing} cells, one device on the same"
+          f" rows {floor_worst:.3e} and {floor_differing} cells")
+    # One search and one backtrace a class count of each beam request, on each rank.
+    beam_launches = [(result["serve"]["launches"]["beam_search"], result["serve"]["launches"]["beam_backtrace"]) for result in ranks]
+    check(beam_launches[0][0] >= len(sizes) and all(pair == beam_launches[0] for pair in beam_launches) and beam_launches[0][0] == beam_launches[0][1],
+          f"multi-GPU serve: beam launches {beam_launches}")
+    check(differing == 0, f"multi-GPU serve: {differing} grid cells differ from one device on the same rows")
+    phase_multi_gpu_cli(results, root, card)
+    if torch.cuda.device_count() >= MULTI_RANKS:
+        phase_multi_gpu_launch(root, card)
+    else:
+        print("multi-GPU plain launch: not run (one card; it spawns a rank a card over NCCL)", flush=True)
+    print(f"multi-GPU: {time.perf_counter() - started:.1f} s", flush=True)
+
+
+MULTI_GPU_FLAG = "--multi-gpu"
+
+
+def multi_gpu_only() -> int:
+    """``chip_smoke.py --multi-gpu``: the kernels' build and the multi-GPU
+    phase alone, on the train CLI phase's inputs (on a machine of two or more
+    cards it also runs the plain launch). Prints no kernels line."""
+    from allophant_tpu_torch.device import set_float32_precision
+    from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
+
+    phase_card()
+    phase_build()
+    set_float32_precision("highest")
+    warnings.simplefilter("ignore", SingletonFeatureWarning)
+    launches = dict.fromkeys(
+        ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),
+        0,
+    )
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as directory:
+        root = Path(directory)
+        write_train_cli_inputs(root)
+        phase_multi_gpu(launches, root)
+    print(f"multi-GPU launches: {launches}", flush=True)
+    return 0
+
+
 def main() -> int:
     if sys.argv[1:2] == [CHILD_FLAG]:
         return train_cli_child(sys.argv[2:])
@@ -2621,6 +3200,8 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     from allophant_tpu_torch.device import set_float32_precision
 
+    if sys.argv[1:] == [MULTI_GPU_FLAG]:
+        return multi_gpu_only()
     overall = time.perf_counter()
     phase_card()
     phase_build()
@@ -2686,6 +3267,8 @@ def main() -> int:
         phase_predict_float32(root)
         torch.cuda.empty_cache()
         phase_train_cli(launches, root)
+        torch.cuda.empty_cache()
+        phase_multi_gpu(launches, root)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

@@ -30,6 +30,20 @@ def test_source_imports_nothing_forbidden(path):
         assert root not in FORBIDDEN, f"{path.relative_to(ROOT)} imports {module}"
 
 
+def test_the_parallel_package_is_guarded():
+    """``allophant_tpu_torch/parallel/`` is among the guarded sources, and
+    importing it joins no process group."""
+    parallel = {path.name for path in SOURCES if path.parent.name == "parallel"}
+    assert {"__init__.py", "mesh.py", "sharding.py", "tensor_parallel.py", "launch.py", "dryrun.py"} <= parallel
+    script = (
+        "import torch.distributed as dist\n"
+        "import allophant_tpu_torch.parallel.dryrun, allophant_tpu_torch.parallel.launch\n"
+        "assert not dist.is_initialized()\n"
+    )
+    result = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
 def test_importing_every_module_loads_no_forbidden_package():
     modules = [
         ".".join(path.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")

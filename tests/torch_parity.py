@@ -10,6 +10,33 @@ import jax
 import numpy as np
 
 
+def shared_across_workers(tmp_path_factory, name: str, compute):
+    """``compute()``'s result, computed once in the test session whatever the
+    number of xdist workers: the first worker to ask computes it under a file
+    lock in the workers' common temporary directory and saves it there
+    (``torch.save``); the others load it. ``compute`` may also write files
+    into the directory it is given (``compute(directory)``)."""
+    import fcntl
+
+    import torch
+
+    base = tmp_path_factory.getbasetemp()
+    root = base.parent if base.name.startswith("popen-gw") else base
+    directory = root / f"shared-{name}"
+    directory.mkdir(exist_ok=True)
+    result = directory / "result.pt"
+    with open(root / f"shared-{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not result.exists():
+                value = compute(directory)
+                torch.save(value, result)
+                return value
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return torch.load(result, weights_only=False)
+
+
 @contextlib.contextmanager
 def exact_frame_encoder_erf():
     """Runs the JAX fused frame encoder with exact erf for the duration.

@@ -1,7 +1,7 @@
-"""How far the float32 CTC gradient of the port (``ops/ctc.py``, which calls
-``F.ctc_loss``) lies from the same gradient computed in float64, at growing
-sequence lengths; with the JAX package importable, also JAX's float32
-gradient (``allophant_tpu/ops/ctc.py``).
+"""How far the CTC gradient of the port (``ops/ctc.py``: float32 log-probs,
+``F.ctc_loss``'s recursion in float64) lies from the same gradient computed
+wholly in float64, at growing sequence lengths; with the JAX package
+importable, also JAX's float32 gradient (``allophant_tpu/ops/ctc.py``).
 
     python3 tools/torch_ctc_precision.py [--device cpu|cuda]
 
@@ -53,7 +53,7 @@ def main() -> int:
             torch.from_numpy(lengths).to(args.device), torch.from_numpy(label_lengths).to(args.device), reduction="sum",
         ).backward()
         reference = exact.grad.cpu().numpy()
-        line = f"T={time_steps}: port f32 {np.abs(tensor.grad.cpu().numpy() - reference).max():.3e}"
+        line = f"T={time_steps}: port {np.abs(tensor.grad.cpu().numpy() - reference).max():.3e}"
         if jax_ctc is not None:
             jax_gradient = grad(
                 lambda values: jax_ctc.ctc_loss_sum_heads(
