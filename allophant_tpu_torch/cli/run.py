@@ -209,15 +209,18 @@ def train_network(arguments: Namespace, mesh=None, device=None) -> None:
         first and not arguments.no_progress,
     )
 
+    train_features = validation_features = None
     train_lengths = validation_lengths = None
     if arguments.features is not None or arguments.lengths is not None:
         languages = {"train": corpus.train.languages, "dev": corpus.dev.languages}
-        # Precomputed features raise until data/store.py is ported.
         processed = corpus_loading.preprocessed_features_or_lengths(
             arguments.features or arguments.lengths, languages, lengths_only=arguments.features is None
         )
         train_lengths = processed["train"].lengths
         validation_lengths = processed["dev"].lengths
+        if arguments.features is not None:
+            train_features = processed["train"].features
+            validation_features = processed["dev"].features
 
     if arguments.no_validation:
         corpus.dev = corpus.dev.__class__.empty()
@@ -244,8 +247,10 @@ def train_network(arguments: Namespace, mesh=None, device=None) -> None:
         corpus,
         attribute_indexer,
         config.preprocessing.resample or 16_000,
-        train_lengths=train_lengths,
-        validation_lengths=validation_lengths,
+        train_features,
+        validation_features,
+        train_lengths,
+        validation_lengths,
         data_workers=arguments.data_workers,
     )
     if estimator is None:

@@ -104,6 +104,7 @@ struct Dropout {
   uint32_t seed0, seed1, threshold;
   float inverse_keep;  // 2^32 / threshold
   int enabled;         // 0: the backward of plain attention, no mask
+  philox::HeadMap head_map;
 };
 
 // ---------------------------------------------------------------- f32, FFMA
@@ -161,6 +162,7 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
+  const int mask_head = dropout.head_map(batch, head);
   const int head_offset = head * columns;
 
   const float* k_base = key + batch * strides.k_batch + head_offset;
@@ -211,8 +213,8 @@ attention_backward_query_kernel(const float* __restrict__ query, const float* __
       const int row = query_start + row_group * kRowsPerThread + i;
       uint4 draws0 = make_uint4(0u, 0u, 0u, 0u), draws1 = draws0;
       if (dropout.enabled) {
-        draws0 = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head, row, key_start / 4 + lane_col);
-        draws1 = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head, row,
+        draws0 = philox::dropout_draws(dropout.seed0, dropout.seed1, mask_head, row, key_start / 4 + lane_col);
+        draws1 = philox::dropout_draws(dropout.seed0, dropout.seed1, mask_head, row,
                                        (key_start + 32) / 4 + lane_col);
       }
 #pragma unroll
@@ -361,6 +363,7 @@ attention_backward_key_kernel(const float* __restrict__ query, const float* __re
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
+  const int mask_head = dropout.head_map(batch, head);
   const int head_offset = head * columns;
   const long long plane = static_cast<long long>(batch_size) * heads * time;
   const float* stats_row = stats + static_cast<long long>(batch_head) * time;
@@ -419,7 +422,7 @@ attention_backward_key_kernel(const float* __restrict__ query, const float* __re
       const int query_col = lane_col + 8 * j;
       if (dropout.enabled) {
         // The four consecutive keys of this thread share one draw call.
-        const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head,
+        const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, mask_head,
                                                   query_start + query_col, (key_start + row_group * 4) / 4);
 #pragma unroll
         for (int i = 0; i < kRowsPerThread; ++i)
@@ -528,7 +531,7 @@ constexpr int kCachedMaskTiles = 16;
 // (e & 1). Entry e's draw is word g % 4 of call e of the four lanes
 // 16 (g / 4) + 4i + c, i = 0..3: lane i draws call i (query parity i & 1, key
 // quad of g or of g + 8 by i / 2), and the lanes gather each other's nibbles.
-__device__ __forceinline__ uint32_t key_tile_keep_bits(const Dropout& dropout, int batch_head, int warp_key_start,
+__device__ __forceinline__ uint32_t key_tile_keep_bits(const Dropout& dropout, int mask_head, int warp_key_start,
                                                        int query_start, int lane) {
   const int group = lane >> 2;
   const int column = lane & 3;
@@ -537,7 +540,7 @@ __device__ __forceinline__ uint32_t key_tile_keep_bits(const Dropout& dropout, i
   uint32_t own = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, batch_head,
+    const uint4 draws = philox::dropout_draws(dropout.seed0, dropout.seed1, mask_head,
                                               query_start + 8 * j + 2 * column + (word & 1), quad);
     own |= philox::keep_nibble(draws, dropout.threshold) << (4 * j);
   }
@@ -623,6 +626,7 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
+  const int mask_head = dropout.head_map(batch, head);
   const int head_offset = head * columns;
   const int row = query_start + 16 * warp + (lane >> 2);  // and row + 8
 
@@ -696,7 +700,7 @@ attention_backward_query_mma_kernel(const bf16* __restrict__ query, const bf16* 
       if (step >= key_tiles && tile < kCachedMaskTiles) {
         kept = cached_keep_bits[tile][threadIdx.x];
       } else {
-        kept = philox::query_tile_keep_bits(dropout.seed0, dropout.seed1, dropout.threshold, batch_head, row,
+        kept = philox::query_tile_keep_bits(dropout.seed0, dropout.seed1, dropout.threshold, mask_head, row,
                                             key_start, lane);
         if (step < key_tiles && tile < kCachedMaskTiles) cached_keep_bits[tile][threadIdx.x] = kept;
       }
@@ -819,6 +823,7 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
   const int batch_head = batch * heads + head;
+  const int mask_head = dropout.head_map(batch, head);
   const int head_offset = head * columns;
   const int warp_key_start = key_start + 16 * warp;
   const int row = warp_key_start + (lane >> 2);  // this lane's keys: row, row + 8
@@ -920,7 +925,7 @@ attention_backward_key_mma_kernel(const bf16* __restrict__ query, const bf16* __
         else
           tiles::product_rows_from_tile<HD>(probs, k_tile, 16 * warp, q_rows, lane);
         if (part == 0)
-          kept = dropout.enabled ? key_tile_keep_bits(dropout, batch_head, warp_key_start, tile * kBlock, lane) : 0u;
+          kept = dropout.enabled ? key_tile_keep_bits(dropout, mask_head, warp_key_start, tile * kBlock, lane) : 0u;
         float weighted[kQueryTiles][4];
 #pragma unroll
         for (int j = 0; j < kQueryTiles; ++j)
@@ -984,7 +989,7 @@ int launch_wide(const void* query, const void* key, const void* value, const voi
                 const Dropout& dropout, cudaStream_t stream) {
   return wide::launch_backward<T>(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time,
                                   heads, head_dim, flat_strides, score_scale, bias_scale, sm_scale,
-                                  wide::Mask{dropout.seed0, dropout.seed1, dropout.threshold, dropout.enabled},
+                                  wide::Mask{dropout.seed0, dropout.seed1, dropout.threshold, dropout.enabled, dropout.head_map},
                                   dropout.inverse_keep, stream);
 }
 
@@ -1061,7 +1066,9 @@ int launch_bf16(const void* query, const void* key, const void* value, const voi
 // positive multiple of 8; above 128 the chunked route of attention_wide.cuh
 // runs (tiles::with_head_width). stats: f32
 // [3, B, H, T] scratch. use_dropout 0 computes the backward of plain
-// attention (the seeds, threshold and inverse_keep are then unused). dtype:
+// attention (the seeds, threshold and inverse_keep are then unused). The
+// call's heads are heads head_offset .. head_offset + heads - 1 of the model's
+// total_heads, which key the mask (philox.cuh). dtype:
 // 0 = f32, 1 = bf16. Returns cudaGetLastError() after the two launches (0 on
 // success).
 extern "C" int attention_backward(const void* query, const void* key, const void* value, const void* grad,
@@ -1069,11 +1076,13 @@ extern "C" int attention_backward(const void* query, const void* key, const void
                                   float* stats, int batch, int time, int heads, int head_dim,
                                   const long long* strides, float score_scale, float bias_scale,
                                   float sm_scale, uint32_t seed0, uint32_t seed1, uint32_t threshold,
-                                  float inverse_keep, int use_dropout, int dtype, void* stream) {
+                                  float inverse_keep, int use_dropout, int total_heads, int head_offset, int dtype,
+                                  void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
   const Strides packed{strides[0], strides[1], strides[2],  strides[3],  strides[4],  strides[5],  strides[6],
                        strides[7], strides[8], strides[9], strides[10], strides[11], strides[12], strides[13]};
-  const Dropout dropout{seed0, seed1, threshold, inverse_keep, use_dropout};
+  if (head_offset < 0 || head_offset + heads > total_heads) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout dropout{seed0, seed1, threshold, inverse_keep, use_dropout, philox::HeadMap{total_heads, head_offset}};
   if (dtype == 0)
     return launch_f32(query, key, value, grad, key_bias, d_query, d_key, d_value, stats, batch, time, heads, head_dim,
                       packed, strides, score_scale, bias_scale, sm_scale, dropout, cuda_stream);

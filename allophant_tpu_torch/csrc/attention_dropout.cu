@@ -86,13 +86,13 @@ template <int HD, bool kPadded>
 __global__ void __launch_bounds__(kThreads, HD == 64 ? 1 : 2)
 attention_dropout_kernel(const float* __restrict__ query, const float* __restrict__ key,
                          const float* __restrict__ value, const float* __restrict__ key_bias,
-                         float* __restrict__ out, int time, int heads, int head_columns,
+                         float* __restrict__ out, int time, int head_columns,
                          long long q_batch_stride, long long q_time_stride,
                          long long k_batch_stride, long long k_time_stride,
                          long long v_batch_stride, long long v_time_stride,
                          long long o_batch_stride, long long o_time_stride,
                          float score_scale, float bias_scale, uint32_t seed0, uint32_t seed1,
-                         uint32_t threshold, float keep_prob) {
+                         uint32_t threshold, float keep_prob, philox::HeadMap head_map) {
   // The head's own width: the constant HD unless it runs padded.
   const int columns = kPadded ? head_columns : HD;
   static_assert(HD % 8 == 0, "head_dim must be a multiple of 8");
@@ -113,7 +113,7 @@ attention_dropout_kernel(const float* __restrict__ query, const float* __restric
   const int query_start = blockIdx.x * kBlockQ;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int batch_head = batch * heads + head;
+  const int mask_head = head_map(batch, head);
   const int head_offset = head * columns;
 
   const float* q_base = query + batch * q_batch_stride + head_offset;
@@ -192,9 +192,9 @@ attention_dropout_kernel(const float* __restrict__ query, const float* __restric
       row_max[i] = new_max;
       const int row = row_group * kRowsPerThread + i;
       // Draws of this row's two runs of four key columns.
-      const uint4 draws0 = philox::dropout_draws(seed0, seed1, batch_head, query_start + row,
+      const uint4 draws0 = philox::dropout_draws(seed0, seed1, mask_head, query_start + row,
                                                  key_start / 4 + lane_col);
-      const uint4 draws1 = philox::dropout_draws(seed0, seed1, batch_head, query_start + row,
+      const uint4 draws1 = philox::dropout_draws(seed0, seed1, mask_head, query_start + row,
                                                  (key_start + 32) / 4 + lane_col);
       float tile_sum = 0.0f;
 #pragma unroll
@@ -263,7 +263,7 @@ attention_dropout_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
                              long long k_batch_stride, long long k_time_stride, long long v_batch_stride,
                              long long v_time_stride, long long o_batch_stride, long long o_time_stride,
                              float score_scale, float bias_scale, uint32_t seed0, uint32_t seed1,
-                             uint32_t threshold, float keep_prob) {
+                             uint32_t threshold, float keep_prob, philox::HeadMap head_map) {
   // The head's own width: the constant HD unless it runs padded.
   const int columns = kPadded ? head_columns : HD;
   constexpr int kTileElements = tiles::Head<HD>::kTileElements;
@@ -282,7 +282,7 @@ attention_dropout_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
   const int query_start = blockIdx.x * kBlockQ;
   const int head_offset = blockIdx.y * columns;
   const int batch = blockIdx.z;
-  const int batch_head = batch * gridDim.y + blockIdx.y;
+  const int mask_head = head_map(batch, blockIdx.y);
   const int row = query_start + 16 * warp + group;  // and row + 8
 
   const bf16* k_base = key + batch * k_batch_stride + head_offset;
@@ -336,7 +336,7 @@ attention_dropout_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
 #pragma unroll
       for (int e = 0; e < 4; ++e) scores[j][e] = 0.0f;
     tiles::product_rows<HD>(scores, q_fragments, k_tile, lane);
-    const uint32_t kept = philox::query_tile_keep_bits(seed0, seed1, threshold, batch_head, row, tile * kBlockK, lane);
+    const uint32_t kept = philox::query_tile_keep_bits(seed0, seed1, threshold, mask_head, row, tile * kBlockK, lane);
 
     float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -395,8 +395,8 @@ attention_dropout_mma_kernel(const bf16* __restrict__ query, const bf16* __restr
 }
 
 // K6: one thread per (batch * heads + head, row, run of four columns).
-__global__ void dropout_mask_kernel(uint32_t* __restrict__ out, int batch_heads, int time,
-                                    uint32_t seed0, uint32_t seed1) {
+__global__ void dropout_mask_kernel(uint32_t* __restrict__ out, int batch_heads, int heads, int time,
+                                    uint32_t seed0, uint32_t seed1, philox::HeadMap head_map) {
   const int quads = (time + 3) / 4;
   const long long index = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long total = static_cast<long long>(batch_heads) * time * quads;
@@ -405,7 +405,7 @@ __global__ void dropout_mask_kernel(uint32_t* __restrict__ out, int batch_heads,
   const long long rest = index / quads;
   const int row = static_cast<int>(rest % time);
   const int batch_head = static_cast<int>(rest / time);
-  const uint4 draws = philox::dropout_draws(seed0, seed1, batch_head, row, quad);
+  const uint4 draws = philox::dropout_draws(seed0, seed1, head_map(batch_head / heads, batch_head % heads), row, quad);
   uint32_t* row_out = out + (static_cast<long long>(batch_head) * time + row) * time;
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
@@ -416,7 +416,8 @@ __global__ void dropout_mask_kernel(uint32_t* __restrict__ out, int batch_heads,
 
 int launch_f32(const void* query, const void* key, const void* value, const float* key_bias, void* out, int batch,
                int time, int heads, int head_dim, const long long* strides, float score_scale, float bias_scale,
-               uint32_t seed0, uint32_t seed1, uint32_t threshold, float keep_prob, cudaStream_t stream) {
+               uint32_t seed0, uint32_t seed1, uint32_t threshold, float keep_prob, philox::HeadMap head_map,
+               cudaStream_t stream) {
   return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
     constexpr int HD = decltype(width)::value;
     constexpr bool kPadded = decltype(padded)::value;
@@ -427,19 +428,21 @@ int launch_f32(const void* query, const void* key, const void* value, const floa
     const dim3 grid((time + kBlockQ - 1) / kBlockQ, heads, batch);
     attention_dropout_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(query), static_cast<const float*>(key), static_cast<const float*>(value),
-        key_bias, static_cast<float*>(out), time, heads, head_dim, strides[0], strides[1], strides[2], strides[3],
-        strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob);
+        key_bias, static_cast<float*>(out), time, head_dim, strides[0], strides[1], strides[2], strides[3],
+        strides[4], strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob,
+        head_map);
     return static_cast<int>(cudaGetLastError());
   }, [&] {
     return wide::launch_forward<float, true>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
-                                             score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1},
+                                             score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1, head_map},
                                              keep_prob, stream);
   });
 }
 
 int launch_bf16(const void* query, const void* key, const void* value, const float* key_bias, void* out, int batch,
                 int time, int heads, int head_dim, const long long* strides, float score_scale, float bias_scale,
-                uint32_t seed0, uint32_t seed1, uint32_t threshold, float keep_prob, cudaStream_t stream) {
+                uint32_t seed0, uint32_t seed1, uint32_t threshold, float keep_prob, philox::HeadMap head_map,
+               cudaStream_t stream) {
   return tiles::with_head_width(head_dim, [&](auto width, auto padded) {
     constexpr int HD = decltype(width)::value;
     constexpr bool kPadded = decltype(padded)::value;
@@ -451,11 +454,11 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
     attention_dropout_mma_kernel<HD, kPadded><<<grid, kThreads, bytes, stream>>>(
         static_cast<const bf16*>(query), static_cast<const bf16*>(key), static_cast<const bf16*>(value), key_bias,
         static_cast<bf16*>(out), time, head_dim, strides[0], strides[1], strides[2], strides[3], strides[4],
-        strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob);
+        strides[5], strides[6], strides[7], score_scale, bias_scale, seed0, seed1, threshold, keep_prob, head_map);
     return static_cast<int>(cudaGetLastError());
   }, [&] {
     return wide::launch_forward<bf16, true>(query, key, value, key_bias, out, batch, time, heads, head_dim, strides,
-                                            score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1},
+                                            score_scale, bias_scale, wide::Mask{seed0, seed1, threshold, 1, head_map},
                                             keep_prob, stream);
   });
 }
@@ -466,32 +469,39 @@ int launch_bf16(const void* query, const void* key, const void* value, const flo
 // head-dim axis must be contiguous, and for bf16 every head row must start on
 // a 16-byte boundary (the wrapper checks both). head_dim: a positive
 // multiple of 8; above 128 the chunked route of attention_wide.cuh runs
-// (tiles::with_head_width). dtype: 0 = f32, 1 = bf16.
+// (tiles::with_head_width). The call's heads are heads head_offset ..
+// head_offset + heads - 1 of the model's total_heads, which key the mask
+// (philox.cuh). dtype: 0 = f32, 1 = bf16.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int attention_dropout_forward(const void* query, const void* key, const void* value,
                                          const float* key_bias, void* out, int batch, int time,
                                          int heads, int head_dim, const long long* strides,
                                          float score_scale, float bias_scale, uint32_t seed0,
                                          uint32_t seed1, uint32_t threshold, float keep_prob,
-                                         int dtype, void* stream) {
+                                         int total_heads, int head_offset, int dtype, void* stream) {
   cudaStream_t cuda_stream = static_cast<cudaStream_t>(stream);
+  if (head_offset < 0 || head_offset + heads > total_heads) return static_cast<int>(cudaErrorInvalidValue);
+  const philox::HeadMap head_map{total_heads, head_offset};
   if (dtype == 0)
     return launch_f32(query, key, value, key_bias, out, batch, time, heads, head_dim, strides, score_scale,
-                      bias_scale, seed0, seed1, threshold, keep_prob, cuda_stream);
+                      bias_scale, seed0, seed1, threshold, keep_prob, head_map, cuda_stream);
   if (dtype == 1)
     return launch_bf16(query, key, value, key_bias, out, batch, time, heads, head_dim, strides, score_scale,
-                       bias_scale, seed0, seed1, threshold, keep_prob, cuda_stream);
+                       bias_scale, seed0, seed1, threshold, keep_prob, head_map, cuda_stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out: u32 [B, H, T, T], contiguous.
+// out: u32 [B, H, T, T], contiguous: the draws of heads head_offset ..
+// head_offset + heads - 1 of the model's total_heads.
 extern "C" int dropout_mask_forward(void* out, int batch, int heads, int time, uint32_t seed0,
-                                    uint32_t seed1, void* stream) {
+                                    uint32_t seed1, int total_heads, int head_offset, void* stream) {
+  if (head_offset < 0 || head_offset + heads > total_heads) return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = static_cast<long long>(batch) * heads * time * ((time + 3) / 4);
   constexpr int kMaskThreads = 256;
   const long long blocks = (threads + kMaskThreads - 1) / kMaskThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   dropout_mask_kernel<<<static_cast<unsigned>(blocks), kMaskThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(out), batch * heads, time, seed0, seed1);
+      static_cast<uint32_t*>(out), batch * heads, heads, time, seed0, seed1,
+      philox::HeadMap{total_heads, head_offset});
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,6 +61,7 @@ constexpr float kTinyTotal = 1e-30f;
 struct Mask {
   uint32_t seed0, seed1, threshold;
   int enabled;
+  philox::HeadMap head_map;
 };
 
 // Batch and time strides of up to seven [B, T, H*hd] tensors, in the order
@@ -254,9 +255,9 @@ __device__ __forceinline__ void load_bias(float* tile, const float* bias_row, in
 }
 
 // The keep bits of keys key0 .. key0 + 3 (key0 a multiple of 4) of one query.
-__device__ __forceinline__ uint32_t keep_quad(const Mask& mask, int batch_head, int query, int key0) {
+__device__ __forceinline__ uint32_t keep_quad(const Mask& mask, int mask_head, int query, int key0) {
   if (!mask.enabled) return 0xFu;
-  return philox::keep_nibble(philox::dropout_draws(mask.seed0, mask.seed1, batch_head, query, key0 / 4),
+  return philox::keep_nibble(philox::dropout_draws(mask.seed0, mask.seed1, mask_head, query, key0 / 4),
                              mask.threshold);
 }
 
@@ -269,7 +270,7 @@ __device__ __forceinline__ int tile_row() { return threadIdx.x >> 1; }
 // to T, to x and each row's rescale factor.
 template <typename T>
 __device__ void forward_weights(const Shared<T>& shared, const float* bias_tile, float* peak, float* total,
-                                float* rescale, float score_scale, const Mask& mask, int batch_head, int query,
+                                float* rescale, float score_scale, const Mask& mask, int mask_head, int query,
                                 int key_start) {
   const int row = tile_row(), first = half_column();
   const float* scores = shared.s + row * kScoreStride + first;
@@ -284,7 +285,7 @@ __device__ void forward_weights(const Shared<T>& shared, const float* bias_tile,
   T* weights = shared.x1 + row * Ops<T>::kXStride + first;
 #pragma unroll 2
   for (int quad = 0; quad < 8; ++quad) {
-    const uint32_t keep = keep_quad(mask, batch_head, query, key_start + first + 4 * quad);
+    const uint32_t keep = keep_quad(mask, mask_head, query, key_start + first + 4 * quad);
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
       const int j = 4 * quad + w;
@@ -327,7 +328,7 @@ forward_kernel(const T* __restrict__ query, const T* __restrict__ key, const T* 
   const T* k_base = key + batch * strides.batch[1] + head_offset;
   const T* v_base = value + batch * strides.batch[2] + head_offset + column0;
   const float* bias_row = key_bias + static_cast<long long>(batch) * time;
-  const int batch_head = batch * heads + head;
+  const int mask_head = mask.head_map(batch, head);
   if (!kDropout) mask.enabled = 0;
 
   if (threadIdx.x < kRows) {
@@ -343,7 +344,7 @@ forward_kernel(const T* __restrict__ query, const T* __restrict__ key, const T* 
     full_width_scores(shared.s, shared, q_base, strides.time[0], query_start, k_base, strides.time[1], key_start,
                       time, head_dim);
     Ops<T>::load(shared.a, v_base, strides.time[2], key_start, time, out_columns);
-    forward_weights(shared, bias_tile, peak, total, rescale, score_scale, mask, batch_head,
+    forward_weights(shared, bias_tile, peak, total, rescale, score_scale, mask, mask_head,
                     query_start + tile_row(), key_start);
     Ops<T>::wait();
     __syncthreads();
@@ -361,9 +362,9 @@ forward_kernel(const T* __restrict__ query, const T* __restrict__ key, const T* 
 
 // mscale of (query, key): the kept draw's 1 / keep_prob, 0 when dropped, 1
 // without dropout.
-__device__ __forceinline__ float mask_scale(const Mask& mask, float inverse_keep, int batch_head, int query, int key) {
+__device__ __forceinline__ float mask_scale(const Mask& mask, float inverse_keep, int mask_head, int query, int key) {
   if (!mask.enabled) return 1.0f;
-  const uint4 draws = philox::dropout_draws(mask.seed0, mask.seed1, batch_head, query, key / 4);
+  const uint4 draws = philox::dropout_draws(mask.seed0, mask.seed1, mask_head, query, key / 4);
   return philox::word(draws, key & 3) < mask.threshold ? inverse_keep : 0.0f;
 }
 
@@ -397,6 +398,7 @@ backward_query_kernel(const T* __restrict__ query, const T* __restrict__ key, co
   const T* g_base = grad + batch * strides.batch[3] + head_offset;
   const float* bias_row = key_bias + static_cast<long long>(batch) * time;
   const int batch_head = batch * heads + head;
+  const int mask_head = mask.head_map(batch, head);
   const int row = tile_row(), first = half_column();
   const int own_query = query_start + row;
 
@@ -427,7 +429,7 @@ backward_query_kernel(const T* __restrict__ query, const T* __restrict__ key, co
       const int k = key_start + first + j;
       const float e = exp2f((scores[j] * score_scale - new_max) + bias_tile[first + j]);
       sum += e;
-      weighted += e * (d_scores[j] * mask_scale(mask, inverse_keep, batch_head, own_query, k));
+      weighted += e * (d_scores[j] * mask_scale(mask, inverse_keep, mask_head, own_query, k));
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     weighted += __shfl_xor_sync(0xffffffffu, weighted, 1);
@@ -471,7 +473,7 @@ backward_query_kernel(const T* __restrict__ query, const T* __restrict__ key, co
     for (int j = 0; j < 32; ++j) {
       const int k = key_start + first + j;
       const float p = exp2f((scores[j] * score_scale - peak[row]) + bias_tile[first + j]) * total[row];
-      const float dp = d_scores[j] * mask_scale(mask, inverse_keep, batch_head, own_query, k);
+      const float dp = d_scores[j] * mask_scale(mask, inverse_keep, mask_head, own_query, k);
       put(out_row + j, p * (dp - term[row]));
     }
     Ops<T>::wait();
@@ -515,6 +517,7 @@ backward_key_kernel(const T* __restrict__ query, const T* __restrict__ key, cons
   const T* v_base = value + batch * strides.batch[2] + head_offset;
   const T* g_base = grad + batch * strides.batch[3] + head_offset;
   const int batch_head = batch * heads + head;
+  const int mask_head = mask.head_map(batch, head);
   const long long plane = static_cast<long long>(gridDim.z) * heads * time;
   const int row = tile_row(), first = half_column();
   const int own_key = key_start + row;
@@ -546,7 +549,7 @@ backward_key_kernel(const T* __restrict__ query, const T* __restrict__ key, cons
       const float p = query_start + q < time
                           ? exp2f((scores[j] * score_scale - peak[q]) + key_bias_tile[row]) * inverse_total[q]
                           : 0.0f;
-      const float scale = mask_scale(mask, inverse_keep, batch_head, query_start + q, own_key);
+      const float scale = mask_scale(mask, inverse_keep, mask_head, query_start + q, own_key);
       put(dropped_row + j, p * scale);
       put(d_scores_row + j, p * (d_scores[j] * scale - term[q]));
     }

@@ -8,9 +8,13 @@
 // The attention-dropout mask is a pure function of two int32 seeds and
 // (batch, head, query row, key column):
 //   key     = (seed0, seed1) as u32,
-//   counter = (col / 4, row, batch * heads + head, 0),
+//   counter = (col / 4, row, batch * total_heads + head_offset + head, 0),
 //   draw    = output word col % 4,
-// and a weight is kept iff its draw is below keep_threshold(rate). The plain
+// and a weight is kept iff its draw is below keep_threshold(rate). A call over
+// all the model's heads has total_heads = heads and head_offset = 0; a
+// tensor-parallel rank that holds heads head_offset .. head_offset + heads - 1
+// passes the model's total_heads, so that it draws the one-device mask of its
+// heads (HeadMap). The plain
 // PyTorch version is ops/oneshot_attention.py:philox4x32.
 #pragma once
 
@@ -22,6 +26,15 @@ constexpr uint32_t kMultiplier0 = 0xD2511F53u;
 constexpr uint32_t kMultiplier1 = 0xCD9E8D57u;
 constexpr uint32_t kWeyl0 = 0x9E3779B9u;
 constexpr uint32_t kWeyl1 = 0xBB67AE85u;
+
+// The counter's third word of a call's local head `head` of batch row `batch`.
+struct HeadMap {
+  int total_heads;  // the model's heads
+  int head_offset;  // the model's index of the call's head 0
+  __device__ __forceinline__ int operator()(int batch, int head) const {
+    return batch * total_heads + head_offset + head;
+  }
+};
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 counter, uint32_t key0, uint32_t key1) {
 #pragma unroll
@@ -40,7 +53,7 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 counter, uint32_t key0, uin
 }
 
 // The four draws of key columns 4 * column_quad .. 4 * column_quad + 3 of one
-// (batch * heads + head, query row).
+// (HeadMap of the batch row and head, query row).
 __device__ __forceinline__ uint4 dropout_draws(uint32_t seed0, uint32_t seed1, int batch_head, int row,
                                                int column_quad) {
   return philox4x32_10(make_uint4(static_cast<uint32_t>(column_quad), static_cast<uint32_t>(row),

@@ -1,14 +1,12 @@
-"""Mozilla Common Voice corpus, the reading half (the port's copy of
-``allophant_tpu/data/common_voice.py``): TSV parsing into raw transcriptions,
-the ``{split}_transcriptions.bin`` corpus files and their inventories, and
-``load_corpus``'s splits.
+"""Mozilla Common Voice corpus (the port's copy of
+``allophant_tpu/data/common_voice.py``): TSV parsing, offline G2P
+transcription, the ``{split}_transcriptions.bin`` corpus files and their
+inventories, release metadata, and ``load_corpus``'s splits.
 
 The on-disk format (msgpack with transcription records as extension types 2
 and 4, field-name keyed maps inside, plus ``{split}_inventories.json``) is the
 JAX package's and the reference's, read and written byte for byte through the
-port's own codec (``training/msgpack_codec.py``). Release metadata downloads
-and G2P transcription of raw TSVs are not here: they come with the
-data-preparation CLI."""
+port's own codec (``training/msgpack_codec.py``)."""
 
 from __future__ import annotations
 
@@ -17,21 +15,38 @@ import json
 import os
 from dataclasses import dataclass, field
 from os import path
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 from allophant_tpu_torch.data import csv_validator
 from allophant_tpu_torch.data.csv_validator import CsvSchema
-from allophant_tpu_torch.data.g2p import PhonemeTranscription
+from allophant_tpu_torch.data.g2p import (
+    PhonemeTranscriber,
+    PhonemeTranscription,
+    TaggedTranscription,
+)
 from allophant_tpu_torch.data.speech_corpus import (
     LanguageData,
     LanguageInfo,
     MultilingualCorpus,
     MultilingualSplits,
 )
+from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
 from allophant_tpu_torch.phonetics.segmentation import SEGMENTATION_LOGGER
 from allophant_tpu_torch.training import msgpack_codec
 from allophant_tpu_torch.training.checkpoint import VERSION
 from allophant_tpu_torch.training.msgpack_codec import ExtType
+
+
+LANGUAGE_META_URL_TEMPLATE = "https://commonvoice.mozilla.org/dist/releases/cv-corpus-{}.json"
+
+
+def download_release_meta(version: str) -> Any:
+    """Fetches release metadata for a Common Voice version (reference
+    mozilla_common_voice.py:117-118). Requires network access."""
+    import urllib.request
+
+    with urllib.request.urlopen(LANGUAGE_META_URL_TEMPLATE.format(version)) as response:
+        return json.load(response)
 
 
 @dataclass
@@ -228,37 +243,69 @@ class CommonVoiceCorpus(MultilingualCorpus):
         cls,
         directory: str,
         split: str,
-        g2p_engine: Optional[Any] = None,
+        g2p_engine: Optional[PhonemeTranscriber] = None,
         feature_set: Optional[str] = None,
         include_single_upvote_other: bool = False,
+        batch_size: int = 1,
         language_codes: Optional[Sequence[str]] = None,
         map_to_allophoible: bool = False,
         limits: Dict[str, int] | int | None = None,
         use_progress_bar: bool = False,
+        mapping_threshold: int | None = None,
+        attribute_table=None,
     ) -> "CommonVoiceCorpus":
-        """Loads a split from raw Common Voice TSVs as raw transcriptions. G2P
-        transcription (``g2p_engine``) and the remapping of its inventories
-        onto Allophoible (``map_to_allophoible``), which needs the
-        transcriptions, are not ported and raise."""
-        if g2p_engine is not None or map_to_allophoible:
-            raise NotImplementedError(_G2P_NOT_PORTED)
+        """Loads a split from raw Common Voice TSVs, optionally running G2P
+        transcription and remapping inventories to Allophoible."""
         language_codes = (
             [entry for entry in os.listdir(directory) if path.isdir(path.join(directory, entry))]
             if language_codes is None
             else language_codes
         )
+
+        inventory_indexer = (
+            PhoneticAttributeIndexer(
+                "phoible",
+                attribute_table,
+                language_inventories=language_codes,
+                allophones_from_allophoible=True,
+            )
+            if map_to_allophoible
+            else None
+        )
+
+        if g2p_engine is not None:
+            for language in language_codes:
+                if not g2p_engine.supports(language):
+                    raise ValueError(f"Language {language!r} not supported by all G2P engines")
+                if not g2p_engine.supports_tokenization(language):
+                    raise ValueError(f"No available tokenizer model for {language!r}")
+
         if use_progress_bar:
             SEGMENTATION_LOGGER.reset()
+
+        phoneme_sources = None if g2p_engine is None else g2p_engine.phoneme_sources
         return cls(
             directory,
             _load_common_voice_splits(
                 directory,
                 language_codes,
                 [split, _OTHER_SPLIT] if include_single_upvote_other else [split],
+                g2p_engine,
+                batch_size,
+                inventory_indexer,
                 limits,
                 use_progress_bar,
+                mapping_threshold,
             ),
-            CommonVoiceCorpusMeta(path.basename(path.normpath(directory)), None, feature_set, limits),
+            CommonVoiceCorpusMeta(
+                path.basename(path.normpath(directory)),
+                None if phoneme_sources is None else [source.value for source in phoneme_sources],
+                feature_set,
+                limits,
+            ),
+            phoneme_sources=None
+            if phoneme_sources is None
+            else [source.value for source in phoneme_sources],
         )
 
     def transcriptions_to_json(self) -> Dict[str, Any]:
@@ -430,7 +477,6 @@ class CommonVoiceSplits(MultilingualSplits):
 
 
 _OTHER_SPLIT = "other"
-_G2P_NOT_PORTED = "G2P transcription of Common Voice TSVs is not ported yet (ROADMAP Queue 1, item 2: data preparation)"
 
 
 @dataclass
@@ -495,16 +541,83 @@ def _utterance_fields(entry: _CommonVoiceEntry) -> Tuple[str, str, str, str, str
     )
 
 
+def _transcribe_language(
+    extractor, entries: Iterator[_CommonVoiceEntry], batch_size: int
+) -> Tuple[List[Transcription], List[Set[str]]]:
+    """Runs the (possibly multi-engine) G2P extractor over all entries and
+    accumulates each engine's observed phoneme inventory alongside the records."""
+    records: List[Transcription] = []
+    inventories: List[Set[str]] = []
+    for batch, per_entry_transcriptions in extractor.auto_batch_g2p_transcribe(entries, batch_size):
+        for entry, transcriptions in zip(batch, per_entry_transcriptions):
+            primary = transcriptions.flattened_primary_transcriptions()
+            for engine_index, engine_phonemes in enumerate(primary):
+                if engine_index == len(inventories):
+                    inventories.append(set())
+                inventories[engine_index].update(engine_phonemes)
+            records.append(Transcription(*_utterance_fields(entry), transcriptions))
+    return records, inventories
+
+
+def _remap_tagged_segments(
+    mapping: Dict[str, List[str]], segments: List[TaggedTranscription]
+) -> List[TaggedTranscription]:
+    """Rewrites primary-script (untagged) segments through the phoneme mapping;
+    segments carrying an embedded foreign-language tag pass through unchanged."""
+    rewritten = []
+    for segment in segments:
+        if segment.language is not None:
+            rewritten.append(segment)
+            continue
+        expanded: List[str] = []
+        for phoneme in segment.transcription:
+            expanded.extend(mapping[phoneme])
+        rewritten.append(TaggedTranscription(expanded, segment.language))
+    return rewritten
+
+
+def _remap_to_indexer_inventory(
+    records: List[Transcription],
+    engine_inventories: List[List[str]],
+    inventory_indexer: PhoneticAttributeIndexer,
+    language: str,
+    mapping_threshold: int | None,
+) -> Tuple[List[str], List[Dict[str, List[str]]]]:
+    """Maps each engine's observed inventory onto the indexer's phoneme set and
+    rewrites every stored transcription in place through its engine's mapping.
+    Returns the post-mapping inventory union and the per-engine mappings."""
+    mappings = inventory_indexer.map_language_inventory(
+        engine_inventories, language, distance_threshold=mapping_threshold
+    )
+
+    reachable: Set[str] = set()
+    for mapping, inventory in zip(mappings, engine_inventories):
+        for phoneme in inventory:
+            reachable.update(mapping[phoneme])
+
+    for record in records:
+        record.phonemes.phonemes = [
+            _remap_tagged_segments(mapping, engine_segments)
+            for mapping, engine_segments in zip(mappings, record.phonemes.phonemes)
+        ]
+    return sorted(reachable), mappings
+
+
 def _load_common_voice_splits(
     directory: str,
     languages: Sequence[str],
     splits: Sequence[str],
+    g2p_engine: Optional[PhonemeTranscriber] = None,
+    batch_size: int = 1,
+    inventory_indexer: Optional[PhoneticAttributeIndexer] = None,
     limits: Optional[Union[int, Dict[str, int]]] = None,
     use_progress_bar: bool = False,
+    mapping_threshold: int | None = None,
 ) -> Iterator[LanguageData]:
-    """Streams one :class:`LanguageData` per language: TSV rows filtered per
-    split (reference mozilla_common_voice.py:666-781), as raw
-    transcriptions with an empty inventory."""
+    """Streams one :class:`LanguageData` per language: TSV rows filtered per split,
+    optionally G2P-transcribed, optionally remapped onto the indexer's inventory.
+    Semantics follow reference mozilla_common_voice.py:666-781; the structure here
+    is decomposed into the helpers above."""
     schema = _CommonVoiceEntry.schema()
     split_filters = [
         _vote_validated if split == _OTHER_SPLIT else (lambda _: True) for split in splits
@@ -515,8 +628,27 @@ def _load_common_voice_splits(
         SEGMENTATION_LOGGER.context_language(language)
         limit = limits if limits is None or isinstance(limits, int) else limits.get(language)
         entries = _extract_entries(path.join(directory, language), splits, split_filters, schema, limit)
-        records: List[Any] = [RawTranscription(*_utterance_fields(entry)) for entry in entries]
-        yield LanguageData(LanguageInfo(language, [], []), records)
+
+        if g2p_engine is None:
+            records: List[Any] = [RawTranscription(*_utterance_fields(entry)) for entry in entries]
+            engine_inventories: List[List[str]] = []
+        else:
+            records, observed = _transcribe_language(g2p_engine.extractor(language), entries, batch_size)
+            # Engines that produced nothing still need an (empty) inventory slot.
+            observed.extend(set() for _ in range(g2p_engine.num_engines - len(observed)))
+            engine_inventories = [sorted(inventory) for inventory in observed]
+
+        if inventory_indexer is None:
+            inventory = sorted(
+                phoneme for engine_inventory in engine_inventories for phoneme in engine_inventory
+            )
+            mappings: List[Dict[str, List[str]]] = []
+        else:
+            inventory, mappings = _remap_to_indexer_inventory(
+                records, engine_inventories, inventory_indexer, language, mapping_threshold
+            )
+
+        yield LanguageData(LanguageInfo(language, inventory, mappings), records)
 
 
 def _language_progress(languages: Sequence[str]) -> Iterable[str]:
@@ -530,28 +662,35 @@ def _language_progress(languages: Sequence[str]) -> Iterable[str]:
 
 def load_common_voice(
     directory: str,
-    g2p_engine: Optional[Any] = None,
+    g2p_engine: Optional[PhonemeTranscriber] = None,
     feature_set: Optional[str] = None,
     include_single_upvote_other: bool = False,
+    batch_size: int = 1,
     languages: Optional[Sequence[str]] = None,
     map_to_allophoible: bool = False,
     training_limits: Optional[Union[int, Dict[str, int]]] = None,
     use_progress_bar: bool = False,
+    mapping_threshold: int | None = None,
+    attribute_table=None,
 ) -> CommonVoiceSplits:
-    """Loads train/dev/test from raw TSVs (reference
-    mozilla_common_voice.py:814-867); the dev and test splits take the
-    training split's languages."""
+    """Loads train/dev/test with transcription; test phonemes are never remapped for
+    freedom at evaluation time (reference mozilla_common_voice.py:814-867)."""
     train_split = CommonVoiceCorpus.load_split(
-        directory, "train", g2p_engine, feature_set, include_single_upvote_other,
-        languages, map_to_allophoible, training_limits, use_progress_bar,
+        directory, "train", g2p_engine, feature_set, include_single_upvote_other, batch_size,
+        languages, map_to_allophoible, training_limits, use_progress_bar, mapping_threshold,
+        attribute_table,
     )
     return CommonVoiceSplits(
         train_split,
-        *(
-            CommonVoiceCorpus.load_split(
-                directory, split, g2p_engine, feature_set, language_codes=train_split.languages,
-                map_to_allophoible=map_to_allophoible, use_progress_bar=use_progress_bar,
-            )
-            for split in ("dev", "test")
+        CommonVoiceCorpus.load_split(
+            directory, "dev", g2p_engine, feature_set, batch_size=batch_size,
+            language_codes=train_split.languages, map_to_allophoible=map_to_allophoible,
+            use_progress_bar=use_progress_bar, mapping_threshold=mapping_threshold,
+            attribute_table=attribute_table,
+        ),
+        CommonVoiceCorpus.load_split(
+            directory, "test", g2p_engine, feature_set, batch_size=batch_size,
+            language_codes=train_split.languages, map_to_allophoible=False,
+            use_progress_bar=use_progress_bar, attribute_table=attribute_table,
         ),
     )

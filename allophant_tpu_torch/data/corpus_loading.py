@@ -2,31 +2,22 @@
 dispatch on the dataset type and path shape. For "common-voice" a directory
 loads the train, dev and test splits, a ``{split}_transcriptions.bin`` path
 that split alone; "ucla-phonetic" loads a corpus directory as a test split.
-Precomputed features are not ported; the precomputed per-utterance lengths of
-``--lengths`` are read from the JAX package's ragged store layout
-(``root/<split>/<language>/lengths.npy``)."""
+Precomputed features and lengths come from ``data/store.py`` (the ragged
+store, or a zarr cache)."""
 
 from __future__ import annotations
 
 import os
 import re
-from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
-
-import numpy as np
+from typing import Dict, Sequence
 
 from allophant_tpu_torch.data.common_voice import CommonVoiceCorpus, CommonVoiceSplits
 from allophant_tpu_torch.data.speech_corpus import MultilingualSplits
+from allophant_tpu_torch.data.store import PreprocessedSplitData, preprocessed_features_or_lengths
 from allophant_tpu_torch.data.ucla import UCLAPhoneticCorpus
 from allophant_tpu_torch.phonetics.language_codes import LanguageCodeMap
 
 _TRANSCRIPTION_RE = re.compile(r"^(?P<split>.*)_transcriptions\.bin$")
-
-
-@dataclass
-class PreprocessedSplitData:
-    lengths: np.ndarray
-    features: Optional[List[np.ndarray]] = None
 
 
 def _map_languages(directory: str, languages: Sequence[str]) -> Sequence[str]:
@@ -85,20 +76,3 @@ def load_corpus(
         return MultilingualSplits.single(UCLAPhoneticCorpus.load(path, resample, languages, progress_bar))
     raise ValueError(f"Corpus of type {dataset_type} is not supported")
 
-
-def preprocessed_features_or_lengths(
-    data_path: str, split_languages: Dict[str, Sequence[str]], lengths_only: bool = True
-) -> Dict[str, PreprocessedSplitData]:
-    """The precomputed lengths of each split, concatenated in language order,
-    from the JAX package's ragged store. Features, and reference caches in
-    zarr, are not ported."""
-    if not lengths_only or os.path.isfile(os.path.join(data_path, ".zgroup")):
-        raise NotImplementedError(
-            "Precomputed features and zarr caches are not ported yet (ROADMAP Queue 1, item 2: data/store.py)"
-        )
-    return {
-        split: PreprocessedSplitData(
-            np.concatenate([np.load(os.path.join(data_path, split, language, "lengths.npy")) for language in languages])
-        )
-        for split, languages in split_languages.items()
-    }

@@ -49,12 +49,14 @@ _SIGNATURES = {
         + [ctypes.c_int] * 4
         + [_C_POINTER, ctypes.c_float, ctypes.c_float]
         + [ctypes.c_uint32] * 3
-        + [ctypes.c_float, ctypes.c_int, _C_POINTER],
+        + [ctypes.c_float]
+        + [ctypes.c_int] * 3
+        + [_C_POINTER],
     ),
     "dropout_mask": (
         "attention_dropout",
         "dropout_mask_forward",
-        [_C_POINTER] + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 2 + [_C_POINTER],
+        [_C_POINTER] + [ctypes.c_int] * 3 + [ctypes.c_uint32] * 2 + [ctypes.c_int] * 2 + [_C_POINTER],
     ),
     "attention_backward": (
         "attention_backward",
@@ -64,7 +66,9 @@ _SIGNATURES = {
         + [_C_POINTER]
         + [ctypes.c_float] * 3
         + [ctypes.c_uint32] * 3
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _C_POINTER],
+        + [ctypes.c_float]
+        + [ctypes.c_int] * 4
+        + [_C_POINTER],
     ),
     "frame_encoder": (
         "frame_encoder",

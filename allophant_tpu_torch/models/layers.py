@@ -23,10 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 
-# Large odd strides (2^32 over the golden ratio, and MurmurHash3's first
-# multiplier) between the dropout streams of data ranks and of model ranks.
+# A large odd stride (2^32 over the golden ratio) between the dropout streams
+# of data ranks.
 _STREAM_STRIDE = 0x9E3779B1
-_SHARD_STRIDE = 0x85EBCA6B
 
 
 @dataclasses.dataclass
@@ -34,54 +33,40 @@ class DropoutRng:
     """The random state of one training forward: ``host`` (a CPU generator)
     draws the attention-dropout kernel seeds without a device sync, ``device``
     (a generator on the activations' device) draws the elementwise masks.
-    Under tensor parallelism ``shard`` (this model rank's own pair) draws the
-    masks of tensors sharded over the model axis: the encoder layers' local
-    heads and FFN columns."""
+    Every model rank of a tensor-parallel group holds the same pair and draws
+    one device's masks: the attention kernels key their masks by the global
+    head, and a sharded activation's mask is drawn whole and cut
+    (``dropout``'s ``total_columns``)."""
 
     host: torch.Generator
     device: torch.Generator
-    shard: Optional["DropoutRng"] = None
 
     @classmethod
-    def from_seed(cls, seed: int, device, stream: int = 0, shard: Optional[int] = None) -> "DropoutRng":
+    def from_seed(cls, seed: int, device, stream: int = 0) -> "DropoutRng":
         """The generators from ``seed``; ``stream`` (a data-parallel rank) is
-        folded into all, so that each stream draws its own masks, and stream
-        0 draws those of one device. ``shard`` (a model-parallel rank; None
-        without a model axis) is folded into ``shard`` only, so that the ranks
-        of a model group draw equal masks on the activations they all hold
-        and their own on their shards. The CPU generator keeps only a seed's
-        low 32 bits, so streams and shards move them by large odd strides:
-        two streams' seeds of steps ``s`` and ``t`` meet only if ``t - s`` is
-        about 10^9."""
+        folded into both, so that each stream draws its own masks, and stream
+        0 draws those of one device. The CPU generator keeps only a seed's
+        low 32 bits, so streams move them by a large odd stride: two streams'
+        seeds of steps ``s`` and ``t`` meet only if ``t - s`` is about
+        10^9."""
         device = torch.device(device)
         seed = seed + stream * _STREAM_STRIDE
-        own = None if shard is None else cls.from_seed(seed + (shard + 1) * _SHARD_STRIDE, device)
         host = torch.Generator(device="cpu").manual_seed(seed)
-        return cls(host, torch.Generator(device=device).manual_seed(seed + 1), own)
+        return cls(host, torch.Generator(device=device).manual_seed(seed + 1))
 
     @classmethod
     def for_mesh(cls, seed: int, device, mesh=None) -> "DropoutRng":
         """``from_seed`` for this rank of a ``parallel.mesh.Mesh`` (None: one
-        device): its data rank's stream, and its model rank's shard when the
-        mesh has a model axis."""
-        if mesh is None:
-            return cls.from_seed(seed, device)
-        return cls.from_seed(seed, device, mesh.data_rank, mesh.model_rank if mesh.model_parallel > 1 else None)
-
-    def sharded(self) -> "DropoutRng":
-        """The generators for a tensor sharded over the model axis."""
-        return self if self.shard is None else self.shard
+        device): its data rank's stream, shared by its model group."""
+        return cls.from_seed(seed, device, 0 if mesh is None else mesh.data_rank)
 
     def get_state(self):
         """Every generator's state, for ``set_state`` to replay a region's draws."""
-        state = (self.host.get_state(), self.device.get_state())
-        return state if self.shard is None else state + self.shard.get_state()
+        return self.host.get_state(), self.device.get_state()
 
     def set_state(self, state) -> None:
         self.host.set_state(state[0])
         self.device.set_state(state[1])
-        if self.shard is not None:
-            self.shard.set_state(state[2:])
 
     def kernel_seeds(self):
         """Two int32 seeds for the attention-dropout kernels, drawn on the host."""
@@ -89,16 +74,25 @@ class DropoutRng:
         return int(seeds[0]), int(seeds[1])
 
 
-def dropout(hidden: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
+def dropout(
+    hidden: torch.Tensor, rate: float, rng: Optional[DropoutRng], total_columns: Optional[int] = None, column_offset: int = 0
+) -> torch.Tensor:
     """flax ``nn.Dropout(rate)``: identity without ``rng`` (deterministic) or at
     rate 0, zeros at rate >= 1, else a Bernoulli keep mask from ``rng.device``
-    with the kept values scaled by 1 / (1 - rate), in the input's dtype."""
+    with the kept values scaled by 1 / (1 - rate), in the input's dtype. A
+    ``hidden`` that holds the last-axis columns ``column_offset ..`` of a
+    ``total_columns`` wide whole (a tensor-parallel shard) takes its columns
+    of the whole's mask, so that the shards draw one device's."""
     if rng is None or rate == 0.0:
         return hidden
     if rate >= 1.0:
         return torch.zeros_like(hidden)
     keep_prob = 1.0 - rate
-    mask = torch.empty_like(hidden).bernoulli_(keep_prob, generator=rng.device)
+    if total_columns is None:
+        mask = torch.empty_like(hidden).bernoulli_(keep_prob, generator=rng.device)
+    else:
+        whole = torch.empty((*hidden.shape[:-1], total_columns), dtype=hidden.dtype, device=hidden.device)
+        mask = whole.bernoulli_(keep_prob, generator=rng.device)[..., column_offset : column_offset + hidden.shape[-1]]
     return hidden * mask / keep_prob
 
 

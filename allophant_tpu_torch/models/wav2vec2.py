@@ -273,6 +273,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         tp, self.group = _model_parallel(mesh)
         self.heads = _split(arch.num_attention_heads, tp, "attention heads")
+        self.total_heads = arch.num_attention_heads
+        self.head_offset = 0 if mesh is None else mesh.model_rank * self.heads
         self.width = arch.hidden_size // tp
         self.dropout_rate = arch.attention_dropout
         self.qkv_proj = Dense(arch.hidden_size, 3 * self.width, dtype, device, param_dtype)
@@ -288,8 +290,10 @@ class SelfAttention(nn.Module):
         """The [B, T, D/tp] attention context of a fused QKV tile."""
         query, key, value = qkv.split(self.width, dim=-1)
         head_dim = self.width // self.heads
-        rng = None if rng is None else rng.sharded()
-        return multi_head_attention(query, key, value, key_bias, head_dim**-0.5, self.heads, self.dropout_rate, rng)
+        return multi_head_attention(
+            query, key, value, key_bias, head_dim**-0.5, self.heads, self.dropout_rate, rng,
+            self.total_heads, self.head_offset,
+        )
 
     def output(self, context: torch.Tensor) -> torch.Tensor:
         with checkpoint_name("w2v2_attn_out"):
@@ -309,6 +313,8 @@ class FeedForward(nn.Module):
         self.activation_dropout = arch.activation_dropout
         self.hidden_dropout = arch.hidden_dropout
         width = _split(arch.intermediate_size, tp, "FFN columns")
+        self.total_columns = arch.intermediate_size
+        self.column_offset = 0 if mesh is None else mesh.model_rank * width
         self.intermediate_dense = Dense(arch.hidden_size, width, dtype, device, param_dtype)
         self.output_dense = _output_dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype, mesh)
 
@@ -316,7 +322,7 @@ class FeedForward(nn.Module):
         hidden = copy_to_model_parallel(hidden, self.group)
         with checkpoint_name("w2v2_ffn_hidden"):
             hidden = self.intermediate_dense(hidden)
-        hidden = dropout(fast_gelu(hidden), self.activation_dropout, None if rng is None else rng.sharded())
+        hidden = dropout(fast_gelu(hidden), self.activation_dropout, rng, self.total_columns, self.column_offset)
         with checkpoint_name("w2v2_ffn_out"):
             hidden = self.output_dense(hidden)
         return dropout(hidden, self.hidden_dropout, rng)

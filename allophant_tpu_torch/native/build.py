@@ -1,12 +1,14 @@
-"""Builds the port's native C++ core (IPA segmentation and edit distances) on
-first use and caches it (counterpart of ``allophant_tpu/native/build.py``).
+"""Builds the port's native C++ core (IPA segmentation, edit distances and the
+LZ4 block decoder of the zarr caches) on first use and caches it (counterpart
+of ``allophant_tpu/native/build.py``).
 
-``native/src/segmenter.cpp`` and ``edit_distance.cpp`` are the port's own
-copies of the JAX package's sources. They compile with the host C++ compiler
+``native/src/segmenter.cpp``, ``edit_distance.cpp`` and ``lz4_codec.cpp`` are
+the port's own copies of the JAX package's sources. They compile with the host C++ compiler
 (``$CXX``, else ``g++``) into ``allophant_tpu_torch/_build/native/<hash>/``,
 where the hash covers the sources and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. The library has a plain C
-interface, bound with ctypes in ``allophant_tpu_torch.phonemes``. Nothing
+interface, bound with ctypes in ``allophant_tpu_torch.phonemes`` and
+``allophant_tpu_torch.data.zarr_store``. Nothing
 here runs at import time."""
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import threading
 from pathlib import Path
 
 _SOURCE_DIR = Path(__file__).resolve().parent / "src"
-SOURCES = ("segmenter.cpp", "edit_distance.cpp")
+SOURCES = ("segmenter.cpp", "edit_distance.cpp", "lz4_codec.cpp")
 _FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build" / "native"
 _lock = threading.Lock()

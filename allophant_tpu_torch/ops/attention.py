@@ -48,13 +48,19 @@ def reference_attention(
     return torch.einsum("bhts,bshd->bthd", weights, value)
 
 
-def dropout_attention(query, key, value, key_bias, sm_scale: float, heads: int, rate: float, rng: DropoutRng):
+def dropout_attention(
+    query, key, value, key_bias, sm_scale: float, heads: int, rate: float, rng: DropoutRng,
+    total_heads: Optional[int] = None, head_offset: int = 0,
+):
     """[B, T, H*hd] attention with weight dropout drawn inside the kernel: the
     mask is a pure function of two int32 seeds drawn on the host from
-    ``rng.host`` and of (batch, head, row, col), so the backward regenerates it
-    (reference HF attention-dropout semantics: dropout on softmaxed weights)."""
+    ``rng.host`` and of (batch, global head, row, col), so the backward
+    regenerates it (reference HF attention-dropout semantics: dropout on
+    softmaxed weights)."""
     seeds = rng.kernel_seeds()
-    return OneshotDropoutAttention.apply(query, key, value, key_bias, seeds, sm_scale, heads, rate)
+    return OneshotDropoutAttention.apply(
+        query, key, value, key_bias, seeds, sm_scale, heads, rate, total_heads, head_offset
+    )
 
 
 def multi_head_attention(
@@ -66,13 +72,19 @@ def multi_head_attention(
     heads: int,
     dropout_rate: float = 0.0,
     rng: Optional[DropoutRng] = None,
+    total_heads: Optional[int] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Dispatch over [B, T, H*hd] q/k/v (strided views allowed) and a [B, T]
-    f32 key bias; ``rng=None`` is the deterministic forward."""
+    f32 key bias; ``rng=None`` is the deterministic forward. The heads are
+    heads ``head_offset ..`` of the model's ``total_heads`` (a tensor-parallel
+    shard; default: all of them), which key the dropout mask."""
     if rng is None or dropout_rate == 0.0:
         return OneshotAttention.apply(query, key, value, key_bias, sm_scale, heads)
     if dropout_rate < 1.0:
-        return dropout_attention(query, key, value, key_bias, sm_scale, heads, dropout_rate, rng)
+        return dropout_attention(
+            query, key, value, key_bias, sm_scale, heads, dropout_rate, rng, total_heads, head_offset
+        )
     batch, time, model_dim = query.shape
     shape = (batch, time, heads, model_dim // heads)
     context = reference_attention(

@@ -19,11 +19,15 @@ on CUDA, so the mask is Philox4x32-10 (Random123's constants), a pure function
 of two int32 seeds and (b, h, row, col):
 
 - key = (seed0, seed1) as u32;
-- counter = (col // 4, row, b * H + h, 0);
+- counter = (col // 4, row, b * total_heads + head_offset + h, 0);
 - the draw is output word col % 4;
 
-and a weight is kept iff its draw is below ``keep_threshold(rate)``. The
-backward regenerates the mask from the seeds instead of storing it."""
+and a weight is kept iff its draw is below ``keep_threshold(rate)``. A call
+over the model's heads has ``total_heads = H`` and ``head_offset = 0`` (the
+defaults); a tensor-parallel rank holding heads ``head_offset ..
+head_offset + H - 1`` of ``total_heads`` draws the one-device mask of its
+heads. The backward regenerates the mask from the seeds instead of storing
+it."""
 
 from __future__ import annotations
 
@@ -89,9 +93,22 @@ def philox4x32(counter: Sequence[torch.Tensor], key: Sequence[int]):
     return word0, word1, word2, word3
 
 
-def reference_dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device="cpu") -> torch.Tensor:
+def _total_heads(heads: int, total_heads: Optional[int], head_offset: int) -> int:
+    """The model's head count of a call over heads ``head_offset ..
+    head_offset + heads - 1``; raises when they do not lie inside it."""
+    total = heads if total_heads is None else total_heads
+    if head_offset < 0 or head_offset + heads > total:
+        raise ValueError(f"heads {head_offset} .. {head_offset + heads - 1} do not lie among {total} heads")
+    return total
+
+
+def reference_dropout_mask_bits(
+    seeds: Seeds, batch: int, heads: int, time: int, device="cpu", total_heads: Optional[int] = None, head_offset: int = 0
+) -> torch.Tensor:
     """Plain twin of K6: the u32 draws [B, H, T, T] of the attention-dropout
-    mask (see the module docstring for the layout)."""
+    mask of heads ``head_offset ..`` of ``total_heads`` (see the module
+    docstring for the layout)."""
+    total = _total_heads(heads, total_heads, head_offset)
     quads = (time + 3) // 4
 
     def axis(size, position):
@@ -99,8 +116,9 @@ def reference_dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int,
         shape[position] = size
         return torch.arange(size, dtype=torch.int64, device=device).reshape(shape)
 
+    mask_heads = (axis(batch, 0) * total + head_offset + axis(heads, 1).reshape(1, heads, 1)).reshape(batch * heads, 1, 1)
     words = philox4x32(
-        (axis(quads, 2), axis(time, 1), axis(batch * heads, 0), torch.zeros((), dtype=torch.int64, device=device)),
+        (axis(quads, 2), axis(time, 1), mask_heads, torch.zeros((), dtype=torch.int64, device=device)),
         seeds,
     )
     words = torch.broadcast_tensors(*words)
@@ -108,13 +126,16 @@ def reference_dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int,
     return bits.to(torch.uint32)
 
 
-def dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device=None) -> torch.Tensor:
+def dropout_mask_bits(
+    seeds: Seeds, batch: int, heads: int, time: int, device=None, total_heads: Optional[int] = None, head_offset: int = 0
+) -> torch.Tensor:
     """K6: u32 [B, H, T, T] draws on ``device`` (CUDA unless the caller asks for
     the CPU, where the twin runs; raises without a CUDA device).
     ``dropout_mask_bits.launches`` counts launches."""
     device = resolve_device(device)
+    total = _total_heads(heads, total_heads, head_offset)
     if device.type == "cpu":
-        return reference_dropout_mask_bits(seeds, batch, heads, time, device)
+        return reference_dropout_mask_bits(seeds, batch, heads, time, device, total, head_offset)
     if device.type != "cuda":
         raise ValueError(f"dropout_mask_bits runs on the CPU or a CUDA device, not {device}")
     out = torch.empty(batch, heads, time, time, dtype=torch.uint32, device=device)
@@ -123,7 +144,10 @@ def dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device=No
     kernel = load_kernel("dropout_mask")
     seed0, seed1 = (int(seed) & _MASK32 for seed in seeds)
     with torch.cuda.device(device):
-        status = kernel(out.data_ptr(), batch, heads, time, seed0, seed1, torch.cuda.current_stream(device).cuda_stream)
+        status = kernel(
+            out.data_ptr(), batch, heads, time, seed0, seed1, total, head_offset,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
     check_launch("dropout_mask", status)
     dropout_mask_bits.launches += 1
     return out
@@ -132,8 +156,10 @@ def dropout_mask_bits(seeds: Seeds, batch: int, heads: int, time: int, device=No
 dropout_mask_bits.launches = 0
 
 
-def _keep_mask(seeds: Seeds, batch: int, heads: int, time: int, rate: float, device) -> torch.Tensor:
-    bits = reference_dropout_mask_bits(seeds, batch, heads, time, device)
+def _keep_mask(
+    seeds: Seeds, batch: int, heads: int, time: int, rate: float, device, total_heads: Optional[int] = None, head_offset: int = 0
+) -> torch.Tensor:
+    bits = reference_dropout_mask_bits(seeds, batch, heads, time, device, total_heads, head_offset)
     return bits.to(torch.int64) < keep_threshold(rate)
 
 
@@ -168,20 +194,28 @@ def reference_oneshot(query, key, value, key_bias, sm_scale: float, heads: int) 
     return _merge_heads(weights @ _split_heads(value, heads) / total, query.dtype)
 
 
-def reference_oneshot_dropout(query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float):
-    """Plain twin of K5: K1's arithmetic with the Philox mask on the
-    unnormalised weights; the total sums the unmasked weights and the masked
-    sum is divided by total * keep_prob."""
+def reference_oneshot_dropout(
+    query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float,
+    total_heads: Optional[int] = None, head_offset: int = 0,
+):
+    """Plain twin of K5: K1's arithmetic with the Philox mask (of heads
+    ``head_offset ..`` of ``total_heads``) on the unnormalised weights; the
+    total sums the unmasked weights and the masked sum is divided by total *
+    keep_prob."""
     batch, time, _ = query.shape
     exponentials, total = _exponentials(query, key, key_bias, sm_scale, heads)
-    keep = _keep_mask(seeds, batch, heads, time, rate, query.device)
+    keep = _keep_mask(seeds, batch, heads, time, rate, query.device, total_heads, head_offset)
     weights = torch.where(keep, exponentials, 0.0).to(value.dtype).float()
     return _merge_heads(weights @ _split_heads(value, heads) / (total * _keep_probability(rate)), query.dtype)
 
 
-def reference_oneshot_backward(query, key, value, grad, key_bias, seeds: Optional[Seeds], sm_scale: float, heads: int, rate: Optional[float]):
+def reference_oneshot_backward(
+    query, key, value, grad, key_bias, seeds: Optional[Seeds], sm_scale: float, heads: int, rate: Optional[float],
+    total_heads: Optional[int] = None, head_offset: int = 0,
+):
     """Plain twin of K4: (dq, dk, dv) of K5 (``rate=None``: of K1), with
-    p = softmax, mscale = mask / keep_prob:
+    p = softmax, mscale = mask / keep_prob (the mask of heads ``head_offset ..``
+    of ``total_heads``):
 
         dv = (mscale o p)^T g,  dp = mscale o (g v^T),
         ds = p o (dp - <dp, p>_row),  dq = ds k s,  dk = ds^T q s.
@@ -197,7 +231,7 @@ def reference_oneshot_backward(query, key, value, grad, key_bias, seeds: Optiona
     if rate is None:
         dropped = probabilities
     else:
-        keep = _keep_mask(seeds, batch, heads, time, rate, query.device)
+        keep = _keep_mask(seeds, batch, heads, time, rate, query.device, total_heads, head_offset)
         scale = torch.where(keep, 2**32 / keep_threshold(rate), 0.0)
         dropped = probabilities * scale
         d_probabilities = d_probabilities * scale
@@ -331,13 +365,18 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
 oneshot_attention.launches = 0
 
 
-def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float):
+def oneshot_dropout_attention(
+    query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float,
+    total_heads: Optional[int] = None, head_offset: int = 0,
+):
     """K5: [B, T, H*hd] attention with dropout on the softmaxed weights at
-    ``rate`` (0 < rate < 1), mask drawn from ``seeds`` (two int32).
+    ``rate`` (0 < rate < 1), mask drawn from ``seeds`` (two int32) for heads
+    ``head_offset .. head_offset + H - 1`` of ``total_heads`` (default: H, 0).
     ``oneshot_dropout_attention.launches`` counts launches."""
     _check_rate(rate)
+    total = _total_heads(heads, total_heads, head_offset)
     if query.device.type == "cpu":
-        return reference_oneshot_dropout(query, key, value, key_bias, seeds, sm_scale, heads, rate)
+        return reference_oneshot_dropout(query, key, value, key_bias, seeds, sm_scale, heads, rate, total, head_offset)
     (query, key, value), head_dim, padded = _check_kernel_inputs(
         "oneshot_dropout_attention", query, (key, value), key_bias, heads
     )
@@ -352,7 +391,7 @@ def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scal
             query.data_ptr(), key.data_ptr(), value.data_ptr(), key_bias.data_ptr(), out.data_ptr(),
             batch, time, heads, padded, ctypes.cast(_strides(query, key, value, out), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, *_u32_seeds(seeds), keep_threshold(rate), _keep_probability(rate),
-            _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
+            total, head_offset, _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
         )
     check_launch("attention_dropout", status)
     oneshot_dropout_attention.launches += 1
@@ -362,16 +401,23 @@ def oneshot_dropout_attention(query, key, value, key_bias, seeds: Seeds, sm_scal
 oneshot_dropout_attention.launches = 0
 
 
-def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optional[Seeds], sm_scale: float, heads: int, rate: Optional[float]):
+def oneshot_attention_backward(
+    query, key, value, grad, key_bias, seeds: Optional[Seeds], sm_scale: float, heads: int, rate: Optional[float],
+    total_heads: Optional[int] = None, head_offset: int = 0,
+):
     """K4: (dq, dk, dv) [B, T, H*hd] of K5 with the mask regenerated from
-    ``seeds``, or of K1 with ``rate=None``. Nothing [T, T] is stored: a
+    ``seeds`` (for heads ``head_offset ..`` of ``total_heads``, as K5 drew
+    it), or of K1 with ``rate=None``. Nothing [T, T] is stored: a
     query-tile kernel writes f32 row statistics [3, B, H, T] and dq, a key-tile
     kernel dk and dv. ``oneshot_attention_backward.launches`` counts launches
     (one per call, for the pair)."""
     if rate is not None:
         _check_rate(rate)
+    total = _total_heads(heads, total_heads, head_offset)
     if query.device.type == "cpu":
-        return reference_oneshot_backward(query, key, value, grad, key_bias, seeds, sm_scale, heads, rate)
+        return reference_oneshot_backward(
+            query, key, value, grad, key_bias, seeds, sm_scale, heads, rate, total, head_offset
+        )
     (query, key, value, grad), head_dim, padded = _check_kernel_inputs(
         "oneshot_attention_backward", query, (key, value, grad), key_bias, heads
     )
@@ -392,7 +438,7 @@ def oneshot_attention_backward(query, key, value, grad, key_bias, seeds: Optiona
             batch, time, heads, padded,
             ctypes.cast(_strides(query, key, value, grad, *outputs), ctypes.c_void_p),
             sm_scale * LOG2E, LOG2E, sm_scale, seed0, seed1, threshold, inverse_keep, int(rate is not None),
-            _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
+            total, head_offset, _DTYPE_CODES[query.dtype], torch.cuda.current_stream(query.device).cuda_stream,
         )
     check_launch("attention_backward", status)
     oneshot_attention_backward.launches += 1
@@ -423,18 +469,24 @@ class OneshotAttention(torch.autograd.Function):
 
 
 class OneshotDropoutAttention(torch.autograd.Function):
-    """K5 forward, K4 backward with the mask regenerated from the seeds."""
+    """K5 forward, K4 backward with the mask regenerated from the seeds, for
+    heads ``head_offset ..`` of ``total_heads``."""
 
     @staticmethod
-    def forward(ctx, query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float):
+    def forward(
+        ctx, query, key, value, key_bias, seeds: Seeds, sm_scale: float, heads: int, rate: float,
+        total_heads: Optional[int] = None, head_offset: int = 0,
+    ):
         ctx.save_for_backward(query, key, value, key_bias)
         ctx.seeds, ctx.sm_scale, ctx.heads, ctx.rate = seeds, sm_scale, heads, rate
-        return oneshot_dropout_attention(query, key, value, key_bias, seeds, sm_scale, heads, rate)
+        ctx.total_heads, ctx.head_offset = total_heads, head_offset
+        return oneshot_dropout_attention(query, key, value, key_bias, seeds, sm_scale, heads, rate, total_heads, head_offset)
 
     @staticmethod
     def backward(ctx, grad):
         query, key, value, key_bias = ctx.saved_tensors
         gradients = oneshot_attention_backward(
-            query, key, value, grad.contiguous(), key_bias, ctx.seeds, ctx.sm_scale, ctx.heads, ctx.rate
+            query, key, value, grad.contiguous(), key_bias, ctx.seeds, ctx.sm_scale, ctx.heads, ctx.rate,
+            ctx.total_heads, ctx.head_offset,
         )
-        return (*gradients, None, None, None, None, None)
+        return (*gradients, None, None, None, None, None, None, None)

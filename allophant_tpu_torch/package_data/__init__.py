@@ -1,5 +1,6 @@
 """Bundled data files: the default configuration, the preferred dialects of
-the phoneme inventories, and the flagship's frozen plan."""
+the phoneme inventories, eSpeak NG's phoneme replacements and the
+flagship's frozen plan."""
 
 from importlib import resources
 
@@ -10,3 +11,4 @@ def _resource(name: str):
 
 DEFAULT_CONFIG_PATH = str(_resource("default_config.toml"))
 DEFAULT_DIALECTS_PATH = _resource("default_dialects.json")
+PHONEME_REPLACEMENTS_PATH = _resource("espeakng_phoneme_replacements.json")

@@ -246,18 +246,18 @@ def serving_flagship(device, mesh: Optional[Mesh] = None, state: Optional[Mappin
 
 
 def dropout_draws(mesh: Mesh, device, seed: int = 5) -> np.ndarray:
-    """[ranks, 132] draws of every rank of ``mesh``, in grid order, from the
-    loop's ``DropoutRng`` for this rank: the first 64 of an elementwise keep
-    mask and two attention-kernel seeds, on the activations every rank of a
-    model group holds and then on this rank's shards."""
+    """[ranks, 64 / tp + 2] draws of every rank of ``mesh``, in grid order,
+    from the loop's ``DropoutRng`` for this rank: its columns of a 64-wide
+    activation's keep mask (scaled by 2, the FFN's activation dropout at rate
+    0.5 on its shard) and two attention-kernel seeds."""
+    from allophant_tpu_torch.models.layers import dropout
     from allophant_tpu_torch.parallel.mesh import gather_rows
 
     rng = DropoutRng.for_mesh(seed, device, mesh)
-    pieces = []
-    for generators in (rng, rng.sharded()):
-        mask = torch.empty(64, device=device).bernoulli_(0.5, generator=generators.device)
-        pieces += [mask.double(), torch.tensor(generators.kernel_seeds(), dtype=torch.float64, device=device)]
-    return gather_rows(torch.cat(pieces)[None], mesh.index, mesh.size, mesh.group).cpu().numpy()
+    columns = 64 // mesh.model_parallel
+    mask = dropout(torch.ones(1, columns, device=device), 0.5, rng, 64, mesh.model_rank * columns)[0]
+    seeds = torch.tensor(rng.kernel_seeds(), dtype=torch.float64, device=device)
+    return gather_rows(torch.cat([mask.double(), seeds])[None], mesh.index, mesh.size, mesh.group).cpu().numpy()
 
 
 def checkpoint_round_trip(mesh: Mesh, device, path: str, microbatches: Mapping[str, np.ndarray]) -> Dict[str, object]:

@@ -185,7 +185,7 @@ def load_checkpoint(file_path: str) -> Checkpoint:
     ``allophant.pt`` is looked up in the local HuggingFace cache only."""
     if os.path.isdir(file_path) and os.path.isfile(os.path.join(file_path, ORBAX_METADATA_FILE)):
         raise NotImplementedError(
-            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 1)"
+            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 3)"
         )
     if not os.path.isfile(file_path):
         resolved = _resolve_hub_file(file_path)

@@ -245,7 +245,7 @@ class Estimator:
         attribute_graph: AttributeGraph,
         attribute_indexer: Optional[PhoneticAttributeIndexer] = None,
         wav2vec2_architecture=None,
-        load_pretrained_weights: bool = False,
+        load_pretrained_weights: bool = True,
         seed: int = 0,
         precision: Optional[str] = None,
         device=None,
@@ -261,14 +261,16 @@ class Estimator:
         the input's features a frame (1 for raw samples; the preprocessing
         config's, ``DatasetManager.feature_size``), which the transformer's
         frontend reads. ``remat`` rematerialises the wav2vec2 encoder layers
-        in training. Pretrained encoder weights are not loaded: the port has
-        no access to a model hub. Over a ``mesh`` with a model axis the model
-        is this rank's shard of the one-device model of ``seed``."""
+        in training. With ``load_pretrained_weights`` (the default, as in
+        JAX) a pretrained wav2vec2 encoder takes the weights of the config's
+        ``model_id`` from the local HuggingFace cache, and keeps the seeded
+        ones when they are not there (``models/pretrained.py``). Over a
+        ``mesh`` with a model axis the model is this rank's shard of the
+        one-device model."""
         from allophant_tpu_torch.models.allophant import build_model
+        from allophant_tpu_torch.models.pretrained import load_pretrained_encoder
         from allophant_tpu_torch.weights import seeded_initialization
 
-        if load_pretrained_weights:
-            raise NotImplementedError("Loading pretrained encoder weights is not ported; pass load_pretrained_weights=False")
         device = resolve_device(device)
         if precision is None:
             precision = "mixed" if config.nn.mixed_precision else "float32"
@@ -279,6 +281,8 @@ class Estimator:
             remat=remat, remat_save_names=remat_save_names, mesh=mesh,
         )
         seeded_initialization(built.model, seed, mesh)
+        if load_pretrained_weights and isinstance(config.nn.acoustic_model, Wav2Vec2PretrainedConfig):
+            load_pretrained_encoder(built.model, config.nn.acoustic_model.model_id, mesh)
         return cls(
             built.model, precision, device,
             config=config, feature_size=feature_size, sample_rate=sample_rate, attribute_graph=attribute_graph,
@@ -335,6 +339,7 @@ class Estimator:
             checkpoint.attribute_graph,
             indexer,
             wav2vec2_architecture,
+            load_pretrained_weights=False,
             precision=precision,
             device=device,
             remat=remat,

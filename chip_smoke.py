@@ -35,6 +35,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      at T = 512 with rows ending on each side of the 64-key tile edges, K4
      also against autograd of the forward twins, each bit-equal over two
      calls; the dropout-mask kernel (K6) integer-equal to its twin;
+     Head offsets: K5, K4 and K6 over heads 8-15 of 16 (total_heads 16,
+     head_offset 8) bit-equal to those heads of the 16-head call, in bf16
+     and f32, at the training shape and at heads of 192 (the chunked route);
      Head widths: K1, K5 and K4 at 12, 20, 32, 80, 120, 128, 136, 192 and
      256 in bf16 and f32 against their twins (K5 and K4 bit-equal over two
      calls; 12 and 20 zero-padded to 16 and 24, above 128 the chunked
@@ -111,15 +114,34 @@ Phases, each printing its own lines; any failure exits non-zero:
      times a step and K2 twice on each rank, twins forbidden; step ms,
      gradient all-reduce ms, peak GiB), a float32 4-layer step at dp = 2 and
      at tp = 2 held to this process's one-device step, a tp = 2 step with
-     attention dropout, ``use_data_parallel`` float32 greedy and beam-4
+     every dropout on held to the one-device step of the same seed (the
+     ranks key K5/K4's masks by the global head and cut the FFN's mask from
+     the whole), ``use_data_parallel`` float32 greedy and beam-4
      predictions of the serving requests held to one device on the same
      rows (their distance from one device on the whole batches must equal
      one device's on the same rows), and ``train`` over two ranks on the
      train CLI phase's corpus at 2 layers: SIGTERM to rank 1 alone, both
      stop after the same step, one ``interrupted.ckpt``, ``--restore`` to
      the last epoch; on two or more cards also a plain full-width
-     ``train`` that spawns a rank a card, stopped by SIGTERM to it.
-Then one JSON line describing the kernels, and as the last line
+     ``train`` that spawns a rank a card, stopped by SIGTERM to it;
+ 19. pretrained: the full-width XLS-R 300M written as the hub keeps it
+     (``config.json`` and a ``Wav2Vec2ForPreTraining`` ``pytorch_model.bin``
+     of seeded values, about 1.27 GB) into a temporary ``HF_HUB_CACHE``;
+     ``Estimator.from_config`` on the card loads it (every encoder leaf
+     bit-equal to the file's converted values; the load seconds), one
+     "mixed" step at A = 2, B = 8, 10 s with the twins forbidden (K2 twice,
+     K5 and K4 48 times), then the same with the cache emptied: the seeded
+     weights and one log line;
+ 20. data CLI: the port's ``allophant-data`` ``save-lengths``,
+     ``preprocess`` (80 filterbanks, ragged and ``--zarr``) and ``stats`` on
+     the train CLI phase's corpus; ``train -f`` of the 6-layer transformer
+     for an epoch (K5 and K4 a layer and microbatch, K1 in validation,
+     twins forbidden); a float32 2-layer ``train -f`` against the same run
+     on features computed on the fly (and that run again, the card's
+     run-to-run floor); the full-width flagship ``train -f`` from a
+     raw-sample store for 2 steps (K2 once, K5 and K4 24 times a
+     microbatch); each CLI's seconds.
+Each phase prints its seconds. Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
 
@@ -663,6 +685,47 @@ def phase_dropout_attention() -> list:
                 if label == "train" and dtype == torch.bfloat16 and rate == 0.1:
                     entries["attention_backward"] = time_backward(q, k, v, grad, bias, lengths, scale, rate, error)
     return [entries["attention_dropout"], entries["attention_backward"]]
+
+
+# (heads, head width, first head of the call) of the head-offset checks: the
+# training shape's second half, and a chunked-route width above 128.
+HEAD_OFFSET_CASES = ((HEADS, HEAD_DIM, HEADS // 2), (4, 192, 2))
+
+
+def phase_head_offset() -> None:
+    """K5, K4 and K6 over a tensor-parallel rank's heads: a call over heads
+    ``offset ..`` of the model's, given ``total_heads`` and ``head_offset``,
+    is bit-equal to those heads of the call over all of them, in bf16 and
+    f32, at the training shape and at a width of the chunked route."""
+    from allophant_tpu_torch.ops.oneshot_attention import dropout_mask_bits, oneshot_attention_backward, oneshot_dropout_attention
+
+    rate = 0.1
+    for heads, head_dim, offset in HEAD_OFFSET_CASES:
+        count = heads - offset
+        scale = head_dim**-0.5
+        full_bits = dropout_mask_bits(DROPOUT_SEEDS, TRAIN_BATCH, heads, TRAIN_TIME, "cuda")
+        bits = dropout_mask_bits(DROPOUT_SEEDS, TRAIN_BATCH, count, TRAIN_TIME, "cuda", heads, offset)
+        check(torch.equal(bits.view(torch.int32), full_bits[:, offset:].view(torch.int32)), "dropout_mask with a head offset differs")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias, _lengths = attention_inputs([TRAIN_TIME - 37] + [TRAIN_TIME] * (TRAIN_BATCH - 1), TRAIN_TIME, heads, head_dim, dtype, fused_qkv=True)
+            grad = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(11), device="cuda").to(dtype)
+            columns = slice(offset * head_dim, None)
+            full_out = oneshot_dropout_attention(q, k, v, bias, DROPOUT_SEEDS, scale, heads, rate)
+            out = oneshot_dropout_attention(q[..., columns], k[..., columns], v[..., columns], bias, DROPOUT_SEEDS, scale, count, rate, heads, offset)
+            full_grads = oneshot_attention_backward(q, k, v, grad, bias, DROPOUT_SEEDS, scale, heads, rate)
+            grads = oneshot_attention_backward(
+                q[..., columns], k[..., columns], v[..., columns], grad[..., columns].contiguous(), bias, DROPOUT_SEEDS, scale,
+                count, rate, heads, offset,
+            )
+            torch.cuda.synchronize()
+            check(torch.equal(out, full_out[..., columns]), f"attention_dropout over heads {offset}.. differs from the full call")
+            for name, got, expected in zip(("dq", "dk", "dv"), grads, full_grads):
+                check(torch.equal(got, expected[..., columns]), f"attention_backward {name} over heads {offset}.. differs from the full call")
+            print(
+                f"head offset {str(dtype).removeprefix('torch.')} B={TRAIN_BATCH} T={TRAIN_TIME} heads {offset}..{heads - 1} of {heads}"
+                f" (hd={head_dim}): K5, K4 (dq, dk, dv) and K6 bit-equal to the full call's heads",
+                flush=True,
+            )
 
 
 # Head widths other than 64: XLS-R 1B's 80 and 2B's 120 (which runs as the
@@ -2665,6 +2728,11 @@ CTC_JAX_DISTANCE = {500: 1.217e-4, 1000: 2.748e-4}
 MULTI_METRIC_RTOL, MULTI_NORM_RTOL, MULTI_SHARE, MULTI_SECOND_SHARE, MULTI_FLOOR, MULTI_LOG_PROB_ATOL = (
     1e-5, 3e-5, 1e-3, 2e-3, 1e-6, 1e-4,
 )
+# The tp = 2 step with every dropout on against the one-device step of the same
+# seed: the ranks draw its masks, so only the row-parallel sums' order parts
+# them: gradients and Adam's first moment within 1e-5 of each leaf's largest,
+# the second moment (squares) within 2e-5.
+MULTI_DROPOUT_SEED, MULTI_DROPOUT_SHARE, MULTI_DROPOUT_SECOND_SHARE = 5, 1e-5, 2e-5
 
 
 def multi_gpu_route():
@@ -2788,8 +2856,8 @@ def multi_gpu_mixed_steps(mesh, device) -> dict:
 def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_path: str) -> None:
     """One rank of the multi-GPU phase (spawned by ``parallel.launch.spawn``):
     the full-width mixed dp = 2 steps, the float32 4-layer dp = 2 and
-    tp = 2 steps (and a tp = 2 step with attention dropout, for K5 at 8
-    heads), and ``use_data_parallel``'s float32 predictions of the serving
+    tp = 2 steps (and a tp = 2 step with every dropout on, K5 at 8 heads of
+    the 16), and ``use_data_parallel``'s float32 predictions of the serving
     requests, each with twins forbidden and launches counted. Writes its
     readings to ``output_path`` with its rank in the name; rank 0 also the
     whole gradients and moments of the float32 steps and the predictions."""
@@ -2810,11 +2878,11 @@ def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_
     for label, mesh, architecture, seed in (
         ("f32_dp", data_mesh, shallow, None),
         ("f32_tp", model_mesh, shallow, None),
-        ("tp_dropout", model_mesh, dataclasses.replace(shallow, hidden_dropout=0.0, activation_dropout=0.0), 5),
+        ("tp_dropout", model_mesh, shallow, MULTI_DROPOUT_SEED),
     ):
         with TwinsForbidden():
             (metrics, tensors), launches = counted(
-                lambda: dryrun.sharded_step(mesh, device, inputs["f32_microbatches"], None, seed, architecture, gather=seed is None)
+                lambda: dryrun.sharded_step(mesh, device, inputs["f32_microbatches"], None, seed, architecture)
             )
         results[label] = {"metrics": metrics, "launches": launches, "tensors": tensors if rank == 0 else None}
         torch.cuda.empty_cache()
@@ -3033,7 +3101,8 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
        twice on each rank, twins forbidden; step ms, all-reduce ms, peak GiB;
     2. a full-width 4-layer flagship in float32, dropout off: one dp = 2 and
        one tp = 2 step (8 heads of 64 a rank), each equal to this process's
-       one-device step; a tp = 2 step with attention dropout (K5 at 8 heads);
+       one-device step; a tp = 2 step with every dropout on, equal to the
+       one-device step of the same seed (K5 and K4 at 8 of 16 heads);
     3. ``use_data_parallel`` greedy and beam-4 over the serving requests in
        float32: log-probs within 1e-4 of one device, grid cells that differ
        counted (0 expected);
@@ -3058,6 +3127,7 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
     }
     del template
     reference_metrics, reference = dryrun.sharded_step(None, "cuda", microbatches, None, None, shallow)
+    dropout_metrics, dropout_reference = dryrun.sharded_step(None, "cuda", microbatches, None, MULTI_DROPOUT_SEED, shallow)
     torch.cuda.empty_cache()
     estimator = dryrun.serving_flagship("cuda", architecture=Wav2Vec2Architecture())
     whole_batches = multi_gpu_requests(estimator)
@@ -3123,9 +3193,28 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
             f" worst share of a leaf's largest {worst}; launches {got['launches']}",
             flush=True,
         )
-    dropout_launches = ranks[0]["tp_dropout"]["launches"]
-    check(dropout_launches["attention_dropout"] == f32_layers * TRAIN_ACCUMULATION, f"multi-GPU tp dropout: launches {dropout_launches}")
-    print(f"multi-GPU tp = 2 step with attention dropout (K5 and K4 at 8 heads of 64): launches {dropout_launches}", flush=True)
+    got = ranks[0]["tp_dropout"]
+    for key, value in dropout_metrics.items():
+        rtol = MULTI_NORM_RTOL if key == "grad_norm" else MULTI_METRIC_RTOL
+        check(abs(got["metrics"][key] - value) <= rtol * abs(value), f"multi-GPU tp dropout: {key} {got['metrics'][key]} vs one device {value}")
+    worst = {
+        kind: check_leaves(
+            got["tensors"][kind], dropout_reference[kind],
+            MULTI_DROPOUT_SECOND_SHARE if kind == "exp_avg_sq" else MULTI_DROPOUT_SHARE, f"multi-GPU tp dropout {kind}",
+        )
+        for kind in ("grads", "exp_avg", "exp_avg_sq")
+    }
+    # The check_fused_ctc forward runs K1; the step K5 and K4 a layer and microbatch.
+    expected = {"oneshot_attention": f32_layers, "attention_dropout": f32_layers * TRAIN_ACCUMULATION,
+                "attention_backward": f32_layers * TRAIN_ACCUMULATION, "dropout_mask": 0, "frame_encoder": TRAIN_ACCUMULATION + 1}
+    check(got["launches"] == expected, f"multi-GPU tp dropout: launches {got['launches']}, expected {expected}")
+    print(
+        f"multi-GPU tp = 2 float32 {f32_layers}-layer step with every dropout on (attention, activation, hidden, the heads' tap;"
+        f" K5 and K4 at heads 8..15 of 16 on rank 1) equals the one-device step of seed {MULTI_DROPOUT_SEED}: loss"
+        f" {got['metrics']['mean_loss']:.6f} vs {dropout_metrics['mean_loss']:.6f}, grad_norm {got['metrics']['grad_norm']:.6f}"
+        f" vs {dropout_metrics['grad_norm']:.6f}; worst share of a leaf's largest {worst}; launches {got['launches']}",
+        flush=True,
+    )
 
     # The ranks against one device on the same rows (each rank's share run
     # alone), which they must equal; and against one device on the whole
@@ -3162,6 +3251,363 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
     print(f"multi-GPU: {time.perf_counter() - started:.1f} s", flush=True)
 
 
+# XLS-R 300M's hub config.json (facebook/wav2vec2-xls-r-300m), the fields the
+# encoder's shape reads.
+XLSR_300M_CONFIG = {
+    "architectures": ["Wav2Vec2ForPreTraining"], "model_type": "wav2vec2",
+    "hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16, "intermediate_size": 4096,
+    "conv_dim": [512] * 7, "conv_kernel": [10, 3, 3, 3, 3, 2, 2], "conv_stride": [5, 2, 2, 2, 2, 2, 2],
+    "conv_bias": True, "feat_extract_norm": "layer", "do_stable_layer_norm": True,
+    "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16, "layer_norm_eps": 1e-5,
+    "num_codevector_groups": 2, "num_codevectors_per_group": 320, "codevector_dim": 768, "proj_codevector_dim": 768,
+}
+
+
+def xlsr_pretraining_state(seed: int) -> dict:
+    """A seeded ``Wav2Vec2ForPreTraining`` state dict of XLS-R 300M's shapes,
+    as the hub's ``pytorch_model.bin`` holds it: the encoder under
+    ``wav2vec2.`` (the positional conv weight-normed as weight_g and
+    weight_v), beside the quantizer and the projections of pre-training."""
+    config = XLSR_300M_CONFIG
+    generator = torch.Generator().manual_seed(seed)
+
+    def draw(*shape, scale=None):
+        value = torch.randn(shape, generator=generator)
+        return value * (scale if scale is not None else (shape[-1] if len(shape) > 1 else 1) ** -0.5)
+
+    hidden, inner, channels = config["hidden_size"], config["intermediate_size"], config["conv_dim"]
+    state = {}
+    for index, (width, kernel) in enumerate(zip(channels, config["conv_kernel"])):
+        prefix = f"wav2vec2.feature_extractor.conv_layers.{index}"
+        state[f"{prefix}.conv.weight"] = draw(width, 1 if index == 0 else channels[index - 1], kernel)
+        state[f"{prefix}.conv.bias"] = draw(width, scale=0.02)
+        state[f"{prefix}.layer_norm.weight"] = 1 + draw(width, scale=0.1)
+        state[f"{prefix}.layer_norm.bias"] = draw(width, scale=0.02)
+    state["wav2vec2.feature_projection.layer_norm.weight"] = 1 + draw(channels[-1], scale=0.1)
+    state["wav2vec2.feature_projection.layer_norm.bias"] = draw(channels[-1], scale=0.02)
+    state["wav2vec2.feature_projection.projection.weight"] = draw(hidden, channels[-1])
+    state["wav2vec2.feature_projection.projection.bias"] = draw(hidden, scale=0.02)
+    groups, width = config["num_conv_pos_embedding_groups"], config["num_conv_pos_embeddings"]
+    state["wav2vec2.encoder.pos_conv_embed.conv.weight_g"] = 1 + draw(1, 1, width, scale=0.1)
+    state["wav2vec2.encoder.pos_conv_embed.conv.weight_v"] = draw(hidden, hidden // groups, width)
+    state["wav2vec2.encoder.pos_conv_embed.conv.bias"] = draw(hidden, scale=0.02)
+    state["wav2vec2.encoder.layer_norm.weight"] = 1 + draw(hidden, scale=0.1)
+    state["wav2vec2.encoder.layer_norm.bias"] = draw(hidden, scale=0.02)
+    for layer in range(config["num_hidden_layers"]):
+        prefix = f"wav2vec2.encoder.layers.{layer}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            state[f"{prefix}.attention.{name}.weight"] = draw(hidden, hidden)
+            state[f"{prefix}.attention.{name}.bias"] = draw(hidden, scale=0.02)
+        for name in ("layer_norm", "final_layer_norm"):
+            state[f"{prefix}.{name}.weight"] = 1 + draw(hidden, scale=0.1)
+            state[f"{prefix}.{name}.bias"] = draw(hidden, scale=0.02)
+        state[f"{prefix}.feed_forward.intermediate_dense.weight"] = draw(inner, hidden)
+        state[f"{prefix}.feed_forward.intermediate_dense.bias"] = draw(inner, scale=0.02)
+        state[f"{prefix}.feed_forward.output_dense.weight"] = draw(hidden, inner)
+        state[f"{prefix}.feed_forward.output_dense.bias"] = draw(hidden, scale=0.02)
+    state["wav2vec2.masked_spec_embed"] = draw(hidden, scale=1.0)
+    codevectors = config["num_codevector_groups"] * config["num_codevectors_per_group"]
+    state["quantizer.codevectors"] = draw(1, codevectors, config["codevector_dim"] // config["num_codevector_groups"])
+    state["quantizer.weight_proj.weight"] = draw(codevectors, channels[-1])
+    state["quantizer.weight_proj.bias"] = draw(codevectors, scale=0.02)
+    state["project_hid.weight"] = draw(config["proj_codevector_dim"], hidden)
+    state["project_hid.bias"] = draw(config["proj_codevector_dim"], scale=0.02)
+    state["project_q.weight"] = draw(config["proj_codevector_dim"], config["codevector_dim"])
+    state["project_q.bias"] = draw(config["proj_codevector_dim"], scale=0.02)
+    return state
+
+
+def write_hub_cache(cache: Path, model_id: str, config: dict, state: dict) -> Path:
+    """``model_id`` in the HuggingFace hub cache layout under ``cache``:
+    ``refs/main`` naming a snapshot of ``config.json`` and
+    ``pytorch_model.bin``. Returns the weights file."""
+    revision = "0" * 40
+    repository = cache / f"models--{model_id.replace('/', '--')}"
+    snapshot = repository / "snapshots" / revision
+    snapshot.mkdir(parents=True)
+    (repository / "refs").mkdir()
+    (repository / "refs" / "main").write_text(revision, encoding="utf-8")
+    (snapshot / "config.json").write_text(json.dumps(config), encoding="utf-8")
+    torch.save(state, snapshot / "pytorch_model.bin")
+    return snapshot / "pytorch_model.bin"
+
+
+@contextlib.contextmanager
+def hub_cache(cache: Path):
+    """``$HF_HUB_CACHE`` set to ``cache`` for the block."""
+    saved = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = str(cache)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["HF_HUB_CACHE"]
+        else:
+            os.environ["HF_HUB_CACHE"] = saved
+
+
+def phase_pretrained(results: dict, root: Path) -> None:
+    """Pretrained encoder weights from the local hub cache only: the
+    full-width XLS-R 300M written as the hub keeps it (``config.json`` and a
+    ``Wav2Vec2ForPreTraining`` ``pytorch_model.bin`` of seeded values, the
+    encoder under ``wav2vec2.`` beside the quantizer; about 1.27 GB) into a
+    temporary ``HF_HUB_CACHE``; ``Estimator.from_config`` of the demo config
+    on the card loads it, every encoder leaf bit-equal to the file's values
+    converted on the host (``hf_conversion``); one "mixed" training step at
+    A = 2, B = 8, 10 s with the twins forbidden (K2 twice, K5 and K4 48
+    times each). Then the same with the cache emptied: the seeded weights
+    and the log line that says why."""
+    import logging
+
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.demo import demo_config_dict, demo_indexer
+    from allophant_tpu_torch.models import pretrained
+    from allophant_tpu_torch.models.allophant import attribute_graph_from_config
+    from allophant_tpu_torch.models.hf_conversion import convert_wav2vec2_state
+    from allophant_tpu_torch.models.layers import DropoutRng
+    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.training.train_step import build_freeze_plan, build_loss_plan, create_optimizer, make_train_step
+    from allophant_tpu_torch.weights import wav2vec2_state_from_jax
+
+    config = Config.load(demo_config_dict())
+    indexer = demo_indexer(config)
+    graph = attribute_graph_from_config(config, indexer)
+    model_id = config.nn.acoustic_model.model_id
+    started = time.perf_counter()
+    state = xlsr_pretraining_state(seed=19)
+    cache = root / "hub"
+    weights = write_hub_cache(cache, model_id, XLSR_300M_CONFIG, state)
+    written = time.perf_counter() - started
+    architecture = Wav2Vec2Architecture()
+    encoder = {name.removeprefix("wav2vec2."): value.numpy() for name, value in state.items() if name.startswith("wav2vec2.")}
+    expected = wav2vec2_state_from_jax(convert_wav2vec2_state(encoder, architecture), architecture.num_hidden_layers)
+    del state, encoder
+    print(
+        f"pretrained: {model_id} written to a hub cache in {written:.1f} s ({weights.stat().st_size / 1e9:.3f} GB,"
+        f" Wav2Vec2ForPreTraining layout with quantizer keys)",
+        flush=True,
+    )
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logging.getLogger(pretrained.__name__).addHandler(handler)
+    try:
+        with hub_cache(cache):
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            estimator = Estimator.from_config(config, 1, SAMPLE_RATE, graph, indexer, precision="mixed", device="cuda")
+            torch.cuda.synchronize()
+            loaded = time.perf_counter() - started
+        started = time.perf_counter()
+        seeded = Estimator.from_config(config, 1, SAMPLE_RATE, graph, indexer, load_pretrained_weights=False, precision="mixed", device="cuda")
+        torch.cuda.synchronize()
+        seeded_seconds = time.perf_counter() - started
+        state = estimator.model.acoustic_model.state_dict()
+        check(set(state) == set(expected), "pretrained: the encoder's leaves differ from the file's")
+        differing = [name for name, value in expected.items() if not torch.equal(state[name].cpu(), torch.from_numpy(np.ascontiguousarray(value)))]
+        check(not differing, f"pretrained: {len(differing)} encoder leaves differ from the file's converted values, e.g. {differing[:3]}")
+        seeded_state = seeded.model.acoustic_model.state_dict()
+        check(not torch.equal(seeded_state["feature_projection.projection.weight"], state["feature_projection.projection.weight"]),
+              "pretrained: the loaded encoder equals the seeded one")
+        del seeded, seeded_state
+        print(
+            f"pretrained: Estimator.from_config loaded the cached encoder in {loaded:.2f} s (seeded weights alone:"
+            f" {seeded_seconds:.2f} s); all {len(expected)} encoder leaves bit-equal to the file's converted values",
+            flush=True,
+        )
+
+        model = estimator.model
+        nn = config.nn
+        optimizer = create_optimizer(nn, architecture.hidden_size, model.parameters())
+        step = make_train_step(model, optimizer, build_loss_plan(nn, model.plan.allophone_shape is not None), build_freeze_plan(nn.acoustic_model))
+        microbatches = training_microbatches(model, TRAIN_ACCUMULATION, TRAIN_BATCH, TRAIN_SECONDS * SAMPLE_RATE, "cuda")
+        layers = architecture.num_hidden_layers
+        with TwinsForbidden():
+            started = time.perf_counter()
+            metrics, launches = counted(lambda: step(microbatches, DropoutRng.from_seed(nn.seed, "cuda")))
+            step_ms = (time.perf_counter() - started) * 1e3
+        for name, count in launches.items():
+            results[name] += count
+        expected_launches = {"oneshot_attention": 0, "attention_dropout": TRAIN_ACCUMULATION * layers,
+                             "attention_backward": TRAIN_ACCUMULATION * layers, "dropout_mask": 0, "frame_encoder": TRAIN_ACCUMULATION}
+        check(launches == expected_launches, f"pretrained step: launches {launches}, expected {expected_launches}")
+        check(np.isfinite(metrics["mean_loss"]) and np.isfinite(metrics["grad_norm"]), f"pretrained step: non-finite {metrics}")
+        print(
+            f"pretrained: one mixed step at A={TRAIN_ACCUMULATION} B={TRAIN_BATCH} {TRAIN_SECONDS} s from the loaded encoder:"
+            f" mean_loss {metrics['mean_loss']:.6f}, grad_norm {metrics['grad_norm']:.6f}, {step_ms:.1f} ms (first step),"
+            f" launches {launches}",
+            flush=True,
+        )
+        del estimator, model, optimizer, step, microbatches
+        torch.cuda.empty_cache()
+
+        for path in cache.rglob("*"):
+            if path.is_file():
+                path.unlink()
+        records.clear()
+        with hub_cache(cache):
+            fallback = Estimator.from_config(config, 1, SAMPLE_RATE, graph, indexer, precision="mixed", device="cuda")
+        reference = Estimator.from_config(config, 1, SAMPLE_RATE, graph, indexer, load_pretrained_weights=False, precision="mixed", device="cuda")
+        same = all(torch.equal(a, b) for a, b in zip(fallback.model.state_dict().values(), reference.model.state_dict().values()))
+        messages = [record.getMessage() for record in records]
+        check(same, "pretrained: with the cache emptied, the weights are not the seeded ones")
+        check(len(messages) == 1 and model_id in messages[0], f"pretrained: fallback log lines {messages}")
+        print(f"pretrained: cache emptied: the seeded weights, and one log line: {messages[0]!r}", flush=True)
+        del fallback, reference
+    finally:
+        logging.getLogger(pretrained.__name__).removeHandler(handler)
+        torch.cuda.empty_cache()
+
+
+def data_cli(arguments: list) -> tuple:
+    """(seconds, standard output) of ``allophant_tpu_torch.cli.data`` run in
+    this process with ``arguments``."""
+    from allophant_tpu_torch.cli import data as cli_data
+
+    output = io.StringIO()
+    started = time.perf_counter()
+    with contextlib.redirect_stdout(output):
+        cli_data.main(arguments)
+    return time.perf_counter() - started, output.getvalue()
+
+
+def train_from_store(label: str, root: Path, arguments: list) -> tuple:
+    """A train CLI child run (twins forbidden, launches counted): (report,
+    statistics lines, seconds); fails on a non-zero exit."""
+    started = time.perf_counter()
+    code, lines, report, _stopped = run_train_cli(arguments, root / f"{label}.log", interrupt=False, timeout=600)
+    seconds = time.perf_counter() - started
+    if code != 0 or report is None:
+        print((root / f"{label}.log").read_text(encoding="utf-8", errors="replace")[-4000:], flush=True)
+    check(code == 0 and report is not None, f"data CLI {label}: exit code {code}")
+    return report, [line for line in lines if re.match(r"epoch \d+ step \d+:", line)], seconds
+
+
+def phase_data_cli(results: dict, root: Path) -> None:
+    """The port's ``allophant-data`` on the train CLI phase's Common Voice
+    corpus, then ``train -f`` from its stores on the card:
+    1. ``save-lengths``, ``preprocess`` (80 log-mel filterbanks, the ragged
+       store and ``--zarr``; the two stores' features equal) and ``stats``;
+    2. ``train -f STORE`` of the transformer at the transformer phase's
+       width (d_model 512, 8 heads of 64, FFN 2048, 6 layers; "mixed",
+       dropout 0.1) for one epoch: K5 and K4 once a layer and microbatch, K1
+       in validation, twins forbidden;
+    3. a float32 2-layer transformer ``train -f`` against the same run on
+       features computed on the fly: the saved parameters bit-equal (the
+       features are the same float32 values);
+    4. the full-width flagship ``train -f`` from a raw-sample (16 kHz)
+       ``preprocess`` store for one epoch of 2 steps: K2 once and K5 and K4
+       24 times a microbatch.
+    Each CLI's seconds are printed."""
+    from allophant_tpu_torch.data import store
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    corpus = root / "cv"
+    flagship_config = json.loads((root / "train_cli_config.json").read_text(encoding="utf-8"))
+    flagship_config["nn"]["maximum_iterations"] = 1
+    transformer = transformer_config_dict(0.1)
+    config = json.loads(json.dumps(flagship_config))
+    config["nn"]["acoustic_model"] = transformer["nn"]["acoustic_model"]
+    config["nn"]["projection"]["acoustic_model_dropout"] = 0.1
+    config["preprocessing"] = transformer["preprocessing"]
+    workdir = root / "data_cli"
+    workdir.mkdir()
+    stores = {name: workdir / name for name in ("lengths", "features", "features_zarr", "raw")}
+    seconds = {}
+    seconds["save-lengths"], _ = data_cli(["save-lengths", str(corpus), str(stores["lengths"]), "-j", json.dumps(config)])
+    seconds["preprocess"], _ = data_cli(["preprocess", str(corpus), str(stores["features"]), "-j", json.dumps(config)])
+    seconds["preprocess --zarr"], _ = data_cli(["preprocess", str(corpus), str(stores["features_zarr"]), "-j", json.dumps(config), "--zarr"])
+    seconds["stats"], printed = data_cli(["stats", str(corpus), "-l", str(stores["lengths"]), "-j", "-r", str(TRANSFORMER_FRAMES_PER_SECOND)])
+    seconds["preprocess raw"], _ = data_cli(["preprocess", str(corpus), str(stores["raw"]), "-j", json.dumps(flagship_config)])
+    statistics = json.loads(printed)
+    counts = {split: sum(statistics[split]["utterance_counts"].values()) for split in ("train", "dev", "test")}
+    check(counts == {split: CLI_CLIPS[split] * len(CLI_LANGUAGES) for split in CLI_CLIPS}, f"data CLI stats: counts {counts}")
+    languages = {split: list(CLI_LANGUAGES) for split in CLI_CLIPS}
+    ragged = store.preprocessed_features_or_lengths(str(stores["features"]), languages, lengths_only=False)
+    zarr = store.preprocessed_features_or_lengths(str(stores["features_zarr"]), languages, lengths_only=False)
+    lengths = store.preprocessed_features_or_lengths(str(stores["lengths"]), languages)
+    for split in CLI_CLIPS:
+        check(all(np.array_equal(a, b) for a, b in zip(ragged[split].features, zarr[split].features)), f"data CLI: {split} stores differ")
+        check(ragged[split].lengths.tolist() == [len(a) for a in ragged[split].features], f"data CLI: {split} lengths differ from the features")
+        # save-lengths counts frames from the audio header, as the JAX CLI
+        # does: at most one frame off the computed features.
+        check(np.abs(lengths[split].lengths - ragged[split].lengths).max() <= 1, f"data CLI: {split} saved lengths are off the features")
+        check(ragged[split].features[0].shape[1] == TRANSFORMER_FEATURES, "data CLI: not 80 filterbanks a frame")
+    frames = sum(int(value.sum()) for value in (ragged[split].lengths for split in CLI_CLIPS))
+    print(
+        f"data CLI: {sum(counts.values())} clips, {frames} frames of {TRANSFORMER_FEATURES} filterbanks;"
+        f" seconds {', '.join(f'{name} {value:.2f}' for name, value in seconds.items())}; stats {counts}",
+        flush=True,
+    )
+
+    def arguments(run_config, save, *extra):
+        common = ["train", str(corpus), "-t", "common-voice", "-j", json.dumps(run_config), "-a", str(root / "table.csv")]
+        return [*common, *(["-d", "-s", str(workdir / save)] if save else []), *extra]
+
+    layers = transformer["nn"]["acoustic_model"]["transformer"]["num_layers"]
+    report, lines, wall = train_from_store("transformer", workdir, arguments(config, "transformer", "-f", str(stores["features"])))
+    steps = int(load_checkpoint(str(workdir / "transformer" / "epoch-1.ckpt")).epoch.global_step)
+    launches = report["launches"]
+    validation_batches = launches["oneshot_attention"] // layers
+    expected = {"oneshot_attention": layers * validation_batches, "attention_dropout": TRAIN_ACCUMULATION * layers * steps,
+                "attention_backward": TRAIN_ACCUMULATION * layers * steps, "dropout_mask": 0, "frame_encoder": 0}
+    check(steps > 0 and validation_batches > 0 and launches == expected, f"data CLI transformer train -f: launches {launches}, expected {expected}")
+    for name, count in launches.items():
+        results[name] += count
+    print(f"data CLI: train -f (transformer, 6 layers, mixed) {wall:.1f} s, {steps} steps; statistics {lines}; launches {launches}", flush=True)
+
+    small = json.loads(json.dumps(config))
+    small["nn"]["mixed_precision"] = False
+    small["nn"]["acoustic_model"]["transformer"]["num_layers"] = 2
+    walls, parameters = {}, {}
+    runs = (("store", ["-f", str(stores["features"])]), ("on the fly", []), ("on the fly again", []))
+    for label, extra in runs:
+        save = f"float32_{label.replace(' ', '_')}"
+        report, _lines, walls[label] = train_from_store(save, workdir, arguments(small, save, *extra))
+        for name, count in report["launches"].items():
+            results[name] += count
+        flat = tree_leaves(load_checkpoint(str(workdir / save / "epoch-1.ckpt")).variables["params"])
+        parameters[label] = {key: np.asarray(value) for key, value in flat}
+
+    def apart(first, second):
+        """(leaves not bit-equal, the largest difference as a share of its leaf's largest value)."""
+        differing = [key for key, value in parameters[first].items() if not np.array_equal(value, parameters[second][key])]
+        share = max((np.abs(parameters[first][key] - parameters[second][key]).max() / max(np.abs(parameters[second][key]).max(), 1e-30)
+                     for key in differing), default=0.0)
+        return differing, float(share)
+
+    check(parameters["store"].keys() == parameters["on the fly"].keys(), "data CLI: the float32 runs saved other leaves")
+    differing, share = apart("store", "on the fly")
+    floor_differing, floor_share = apart("on the fly again", "on the fly")
+    # Bit-equal is expected: the batches hold the same float32 features. The
+    # card's own run-to-run floor (the same run again) bounds what may part them.
+    check(share <= max(floor_share, 0.0) or not differing,
+          f"data CLI: float32 train -f parts from on-the-fly features in {len(differing)} leaves (share {share:.3e}),"
+          f" beyond the run-to-run floor ({len(floor_differing)} leaves, share {floor_share:.3e})")
+    print(
+        f"data CLI: float32 2-layer transformer, train -f {walls['store']:.1f} s, on the fly {walls['on the fly']:.1f} s and"
+        f" {walls['on the fly again']:.1f} s: train -f against on the fly: {len(differing)} of {len(parameters['store'])} saved"
+        f" leaves not bit-equal (largest share {share:.3e}); the same on-the-fly run twice: {len(floor_differing)} leaves"
+        f" (largest share {floor_share:.3e})",
+        flush=True,
+    )
+
+    report, lines, wall = train_from_store("flagship_raw", workdir, arguments(flagship_config, None, "-f", str(stores["raw"])))
+    launches = report["launches"]
+    steps = int(re.match(r"epoch \d+ step (\d+):", lines[-1]).group(1)) if lines else 0
+    flagship_layers = 24
+    validation_batches = launches["frame_encoder"] - TRAIN_ACCUMULATION * steps
+    expected = {"oneshot_attention": flagship_layers * validation_batches, "attention_dropout": TRAIN_ACCUMULATION * flagship_layers * steps,
+                "attention_backward": TRAIN_ACCUMULATION * flagship_layers * steps, "dropout_mask": 0,
+                "frame_encoder": TRAIN_ACCUMULATION * steps + validation_batches}
+    check(steps == 2 and validation_batches > 0 and launches == expected, f"data CLI flagship train -f: {steps} steps, launches {launches}, expected {expected}")
+    for name, count in launches.items():
+        results[name] += count
+    print(f"data CLI: train -f (full-width flagship, raw-sample store) {wall:.1f} s, {steps} steps; statistics {lines}; launches {launches}", flush=True)
+
+
 MULTI_GPU_FLAG = "--multi-gpu"
 
 
@@ -3188,6 +3634,14 @@ def multi_gpu_only() -> int:
     return 0
 
 
+def timed(label: str, function, *arguments):
+    """``function(*arguments)``, with a line of the seconds it took."""
+    started = time.perf_counter()
+    value = function(*arguments)
+    print(f"phase {label}: {time.perf_counter() - started:.1f} s", flush=True)
+    return value
+
+
 def main() -> int:
     if sys.argv[1:2] == [CHILD_FLAG]:
         return train_cli_child(sys.argv[2:])
@@ -3203,10 +3657,10 @@ def main() -> int:
     if sys.argv[1:] == [MULTI_GPU_FLAG]:
         return multi_gpu_only()
     overall = time.perf_counter()
-    phase_card()
-    phase_build()
-    phase_tensor_cores()
-    phase_frame_encoder_sass()
+    timed("card", phase_card)
+    timed("build", phase_build)
+    timed("tensor cores", phase_tensor_cores)
+    timed("frame encoder SASS", phase_frame_encoder_sass)
     set_float32_precision("highest")
     launches = dict.fromkeys(
         ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),
@@ -3225,30 +3679,31 @@ def main() -> int:
     serve_lengths = [int(architecture.downsampled_lengths(int(length))) for length in first_batch.lengths]
 
     entries = [
-        phase_attention(serve_lengths, serve_time),
-        phase_frame_encoder(len(first_batch), samples),
-        *phase_beam_kernels(serve_lengths, serve_time),
+        timed("attention kernels", phase_attention, serve_lengths, serve_time),
+        timed("frame encoder kernel", phase_frame_encoder, len(first_batch), samples),
+        *timed("beam kernels", phase_beam_kernels, serve_lengths, serve_time),
     ]
-    dropout_forward, backward = phase_dropout_attention()
-    entries += [backward, dropout_forward, phase_dropout_mask()]
-    phase_head_widths()
+    dropout_forward, backward = timed("dropout kernels", phase_dropout_attention)
+    entries += [backward, dropout_forward, timed("dropout mask kernel", phase_dropout_mask)]
+    timed("head offset", phase_head_offset)
+    timed("head widths", phase_head_widths)
     estimator = build_serving_flagship()
-    phase_serve(estimator, launches)
-    phase_serve_beam(estimator, launches)
+    timed("serve", phase_serve, estimator, launches)
+    timed("serve beam", phase_serve_beam, estimator, launches)
     del estimator
     torch.cuda.empty_cache()
-    phase_wide_encoder(launches)
+    timed("wide heads", phase_wide_encoder, launches)
     torch.cuda.empty_cache()
-    phase_float32()
-    step_seconds = phase_train(launches)
+    timed("float32", phase_float32)
+    step_seconds = timed("train", phase_train, launches)
     torch.cuda.empty_cache()
-    phase_train_float32()
+    timed("train float32", phase_train_float32)
     torch.cuda.empty_cache()
-    phase_remat(launches, step_seconds)
+    timed("remat", phase_remat, launches, step_seconds)
     torch.cuda.empty_cache()
-    phase_remat_float32()
+    timed("remat float32", phase_remat_float32)
     torch.cuda.empty_cache()
-    phase_transformer(launches)
+    timed("transformer", phase_transformer, launches)
     torch.cuda.empty_cache()
     from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
 
@@ -3257,18 +3712,21 @@ def main() -> int:
     warnings.simplefilter("ignore", SingletonFeatureWarning)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as directory:
         root = Path(directory)
-        master_params = phase_train_loop(launches, step_seconds, root)
+        master_params = timed("train loop", phase_train_loop, launches, step_seconds, root)
         torch.cuda.empty_cache()
-        phase_train_loop_float32()
+        timed("train loop float32", phase_train_loop_float32)
         torch.cuda.empty_cache()
-        phase_predict(launches, root, master_params)
+        timed("predict", phase_predict, launches, root, master_params)
         del master_params
         torch.cuda.empty_cache()
-        phase_predict_float32(root)
+        timed("predict float32", phase_predict_float32, root)
         torch.cuda.empty_cache()
-        phase_train_cli(launches, root)
+        timed("train CLI", phase_train_cli, launches, root)
         torch.cuda.empty_cache()
-        phase_multi_gpu(launches, root)
+        timed("multi-GPU", phase_multi_gpu, launches, root)
+        torch.cuda.empty_cache()
+        timed("pretrained", phase_pretrained, launches, root)
+        timed("data CLI", phase_data_cli, launches, root)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

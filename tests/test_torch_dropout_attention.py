@@ -200,3 +200,37 @@ def test_cpu_takes_the_twins_and_other_devices_raise():
         oneshot_attention_backward(*meta, None, 0.3, 2, None)
     with pytest.raises(ValueError, match="rate"):
         oneshot_dropout_attention(q, k, v, bias, SEEDS, 0.3, 2, 1.0)
+
+
+def _head_columns(tensor, heads, first, count):
+    """Heads ``first .. first + count - 1`` of a [B, T, H*hd] tensor."""
+    batch, time, width = tensor.shape
+    return tensor.reshape(batch, time, heads, width // heads)[:, :, first : first + count].reshape(batch, time, -1)
+
+
+@pytest.mark.parametrize("head_offset", [0, 2, 3])
+def test_twins_with_a_head_offset_equal_those_heads_of_the_full_call(head_offset):
+    """A tensor-parallel rank's call over heads ``head_offset ..`` of the
+    model's four draws the full call's mask of those heads: K6's bits equal
+    the full call's heads bit for bit, and K5's output and K4's gradients
+    equal theirs within the CPU matmul's rounding of another batch shape
+    (1e-6; the kernels, one block a head, are held bit-equal on the card).
+    A span outside the model's heads raises."""
+    rng = np.random.default_rng(head_offset)
+    heads, count, batch, time, head_dim, rate, scale = 4, 1 if head_offset == 3 else 2, 2, 11, 8, 0.3, 0.35
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((batch, time, heads * head_dim)).astype(np.float32)) for _ in range(4))
+    bias = torch.zeros(batch, time)
+    bias[1, 7:] = -1e9
+    full_bits = reference_dropout_mask_bits(SEEDS, batch, heads, time)
+    bits = dropout_mask_bits(SEEDS, batch, count, time, "cpu", heads, head_offset)
+    assert torch.equal(bits, full_bits[:, head_offset : head_offset + count])
+    full_out = oneshot_dropout_attention(q, k, v, bias, SEEDS, scale, heads, rate)
+    local = [_head_columns(tensor, heads, head_offset, count) for tensor in (q, k, v, g)]
+    out = oneshot_dropout_attention(*local[:3], bias, SEEDS, scale, count, rate, heads, head_offset)
+    torch.testing.assert_close(out, _head_columns(full_out, heads, head_offset, count), rtol=0, atol=1e-6)
+    full_grads = oneshot_attention_backward(q, k, v, g, bias, SEEDS, scale, heads, rate)
+    grads = oneshot_attention_backward(*local, bias, SEEDS, scale, count, rate, heads, head_offset)
+    for got, expected in zip(grads, full_grads):
+        torch.testing.assert_close(got, _head_columns(expected, heads, head_offset, count), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="do not lie among"):
+        oneshot_dropout_attention(*local[:3], bias, SEEDS, scale, count, rate, heads, heads - count + 1)

@@ -12,8 +12,9 @@ rendezvous) runs every multi-process check once:
   (second moment 2e-3) of each leaf's largest;
 - the dry run as ``__graft_entry__`` configures it (tap dropout 0.2 on),
   against JAX's golden bands;
-- the loop's dropout generators across data and model ranks; remat under
-  tensor parallelism;
+- the loop's dropout generators across data and model ranks, a tp = 2 step
+  with dropout on against the one-device step; remat under tensor
+  parallelism;
 - ``Estimator.use_data_parallel``'s predictions against one process.
 
 JAX's own dp 4 x tp 2 step doubles one gradient, the positional conv's
@@ -159,6 +160,10 @@ def _port_results(jax_flagship, workdir):
             for remat in (False, True)
         ],
         {
+            "name": "tp2_dropout", "kind": "step", "data_parallel": 1, "model_parallel": 2,
+            "microbatches": _microbatches(1), "dropout_seed": 3, "architecture": DROPOUT_ARCHITECTURE,
+        },
+        {
             "name": "checkpoint", "kind": "checkpoint", "data_parallel": 2, "model_parallel": 2,
             "path": str(workdir / "sharded.ckpt"), "microbatches": _microbatches(2),
         },
@@ -177,6 +182,9 @@ def _port_results(jax_flagship, workdir):
     assert result.returncode == 0, result.stdout[-4000:] + result.stderr[-4000:]
     results = torch.load(outputs, weights_only=False)
     results["checkpoint_path"] = str(workdir / "sharded.ckpt")
+    results["one_device_dropout"] = dryrun.sharded_step(
+        None, "cpu", _microbatches(1), state, 3, DROPOUT_ARCHITECTURE
+    )
     single = dryrun.sharded_predictions(dryrun.serving_flagship("cpu", state=state), batch)
     return results, single
 
@@ -355,26 +363,45 @@ def test_dryrun_as_configured_lands_in_jax_golden_bands(jax_steps, port_results,
 
 
 def test_dropout_draws_differ_between_data_ranks_and_shards(port_results):
-    """On a dp 4 x tp 2 mesh, the draws on activations that a model group
-    holds whole are equal within the group and differ between data ranks;
-    the draws on a rank's shards (its heads' kernel seeds, its FFN columns'
-    mask) differ between every two ranks. Data rank 0 draws one device's
-    masks."""
-    draws = port_results[0]["draws"].reshape(4, 2, 2, -1)
-    replicated, shards = draws[:, :, 0], draws[:, :, 1]
-    np.testing.assert_array_equal(replicated[:, 0], replicated[:, 1])
+    """On a dp 4 x tp 2 mesh every model rank draws the one-device masks of
+    its data rank's stream: its kernel seeds are that stream's, and its
+    columns of a sharded activation's mask are its columns of the stream's
+    whole mask. The streams of data ranks differ; data rank 0's is one
+    device's."""
+    from allophant_tpu_torch.models.layers import dropout
+
+    draws = port_results[0]["draws"].reshape(4, 2, -1)
+    for data_rank in range(4):
+        rng = DropoutRng.from_seed(5, "cpu", data_rank)
+        whole = dropout(torch.ones(1, 64), 0.5, rng)[0].double().numpy()
+        seeds = rng.kernel_seeds()
+        for model_rank in range(2):
+            np.testing.assert_array_equal(draws[data_rank, model_rank, :32], whole[32 * model_rank : 32 * (model_rank + 1)])
+            np.testing.assert_array_equal(draws[data_rank, model_rank, 32:], seeds)
     for first in range(4):
         for second in range(first + 1, 4):
-            assert not np.array_equal(replicated[first, 0], replicated[second, 0])
-    flat = shards.reshape(8, -1)
-    for first in range(8):
-        for second in range(first + 1, 8):
-            assert not np.array_equal(flat[first, :64], flat[second, :64])
-            assert not np.array_equal(flat[first, 64:], flat[second, 64:])
-        assert not np.array_equal(flat[first], replicated.reshape(8, -1)[first])
-    rng = DropoutRng.from_seed(5, "cpu")
-    mask = torch.empty(64).bernoulli_(0.5, generator=rng.device).double().numpy()
-    np.testing.assert_array_equal(replicated[0, 0], np.concatenate([mask, rng.kernel_seeds()]))
+            assert not np.array_equal(draws[first, 0], draws[second, 0])
+            assert not np.array_equal(draws[first, 0, 32:], draws[second, 0, 32:])
+    one_device = DropoutRng.for_mesh(5, "cpu")
+    np.testing.assert_array_equal(draws[0, 0, :32], dropout(torch.ones(1, 64), 0.5, one_device)[0, :32].double().numpy())
+
+
+def test_tp2_dropout_step_matches_one_device(port_results):
+    """Dropout on at every encoder site (attention, activation, hidden) and
+    the heads' tap: the tp = 2 step draws the one-device step's masks, the
+    heads' by their global index and the FFN columns' cut from the whole
+    mask, so its metrics, gradients and Adam moments equal the one-device
+    step's within 1e-5 of each leaf's largest (the mesh steps' limit).
+    Adam's first update of a leaf whose gradient is near 0 magnifies the
+    row-parallel sums' rounding, so the parameters are not compared."""
+    metrics, tensors = port_results[0]["tp2_dropout"]
+    expected_metrics, expected = port_results[0]["one_device_dropout"]
+    for key, value in expected_metrics.items():
+        np.testing.assert_allclose(metrics[key], value, rtol=1e-5, err_msg=key)
+    for kind in ("grads", "exp_avg", "exp_avg_sq"):
+        for name, value in expected[kind].items():
+            atol = max(1e-5 * np.abs(value).max(), 1e-12)
+            np.testing.assert_allclose(tensors[kind][name], value, rtol=0, atol=atol, err_msg=f"{kind} {name}")
 
 
 def test_remat_under_tensor_parallelism(port_results):

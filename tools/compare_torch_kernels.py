@@ -13,13 +13,15 @@ the main path's shapes, and compares their outputs:
     python3 tools/compare_torch_kernels.py OTHER_CHECKOUT
 
 The other checkout's csrc/*.cu are built with this checkout's nvcc flags
-into allophant_tpu_torch/_build/compare/; their C entry points must have
-this checkout's signatures. Each time is the mean of two medians of three
+into allophant_tpu_torch/_build/compare/ and bound with that checkout's
+signatures (an entry point from before K5's and K4's head map runs at head
+offset 0). Each time is the mean of two medians of three
 CUDA-event rounds."""
 
 from __future__ import annotations
 
 import ctypes
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -41,6 +43,21 @@ ENTRY_POINTS = ("oneshot_attention", "attention_dropout", "attention_backward", 
 MODULES = (attention_module, frame_module, beam_module)
 
 
+def other_signatures(checkout: Path) -> dict:
+    """The other checkout's ``kernels/build.py:_SIGNATURES``."""
+    spec = importlib.util.spec_from_file_location("other_build", checkout / "allophant_tpu_torch" / "kernels" / "build.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module._SIGNATURES
+
+
+def without_head_map(function):
+    """An entry point from before K5's and K4's ``total_heads`` and
+    ``head_offset`` (the two arguments before the dtype and the stream),
+    called with this checkout's arguments at offset 0."""
+    return lambda *arguments: function(*arguments[:-4], *arguments[-2:])
+
+
 def build_other(checkout: Path) -> dict:
     """The other checkout's entry points, built into _build/compare/."""
     directory = build.BUILD_ROOT / "compare"
@@ -53,11 +70,14 @@ def build_other(checkout: Path) -> dict:
     if any(job.wait() != 0 for job in jobs):
         raise SystemExit("nvcc failed on the other checkout")
     functions = {}
+    signatures = other_signatures(checkout)
     for name in ENTRY_POINTS:
-        library, symbol, argtypes, *_ = build._SIGNATURES[name]
+        library, symbol, argtypes, *_ = signatures[name]
         function = getattr(ctypes.CDLL(str(directory / f"lib{library}.so")), symbol)
         function.argtypes = argtypes
         function.restype = ctypes.c_int
+        if len(build._SIGNATURES[name][2]) - len(argtypes) == 2:
+            function = without_head_map(function)
         functions[name] = function
     return functions
 
