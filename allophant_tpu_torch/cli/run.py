@@ -1,13 +1,17 @@
 """``allophant`` CLI of the port (counterpart of ``allophant_tpu/cli/run.py``):
-train, generate-config, predict, evaluate and edits, with the JAX CLI's flags.
+train, generate-config, predict, evaluate, edits and export, with the JAX
+CLI's flags.
 
     python -m allophant_tpu_torch.cli.run train CORPUS -a table.csv -c config.toml -d -s checkpoints/
     python -m allophant_tpu_torch.cli.run predict CORPUS CHECKPOINT -o predictions.jsonl
     python -m allophant_tpu_torch.cli.run evaluate predictions.jsonl -j
+    python -m allophant_tpu_torch.cli.run export CHECKPOINT transcriber.pt2 -s 8 -d 10 --decode beam4
 
 Training, inference and the device scorer run on the GPU; ``--cpu`` runs
 them on the CPU instead (the plain PyTorch path), as the JAX CLI's ``--cpu``
-selects its CPU backend. ``export`` is not ported yet.
+selects its CPU backend. ``export`` writes an artifact bound to one device:
+its ``--platforms`` takes one entry, ``cuda`` or ``cpu`` (``--cpu`` is
+``--platforms cpu``), where JAX's lowers for a list of platforms.
 
 ``train`` trains data-parallel over every visible GPU, as the JAX CLI trains
 over every visible chip: started by ``torchrun`` it joins the process group
@@ -936,7 +940,67 @@ def make_parser() -> ArgumentParser:
         " 'float32_high' allows TF32 on the GPU; 'float32' is full float32",
     )
     predict_parser.add_argument("--bf16", action="store_true", help="Legacy alias for --precision bfloat16")
+
+    export_parser = subparsers.add_parser(
+        "export",
+        help="Exports the transcription step (weights included) as a torch.export artifact for serving"
+        " hosts without the model code",
+    )
+    export_parser.add_argument("model_path", help="Model id or checkpoint path to export")
+    export_parser.add_argument("output", help="Output artifact path")
+    export_parser.add_argument("-s", "--batch-size", type=int, default=8, help="Static serving batch size")
+    export_parser.add_argument(
+        "-d", "--seconds", type=float, default=10.0, help="Static audio length per utterance in seconds (at 16 kHz)"
+    )
+    export_parser.add_argument(
+        "--decode", default="greedy",
+        help="'greedy' (on-device CTC tokens per head), 'log_probs' (per-head log-probs), or 'beam[width]'"
+        " (greedy attributes + the beam search kernel on the phoneme track, e.g. 'beam4')",
+    )
+    export_parser.add_argument("--bf16", action="store_true", help="Export the bfloat16 compute path")
+    export_parser.add_argument(
+        "--platforms", type=lambda values: values.split(","), default=None,
+        help="The artifact's device, one of 'cuda' (the default) or 'cpu': a torch artifact runs on one device",
+    )
+    export_parser.add_argument("--cpu", action="store_true", help="Exports for the CPU (the same as --platforms cpu)")
     return parser
+
+
+EXPORT_PLATFORMS = ("cuda", "cpu")
+
+
+def _export_device(arguments: Namespace) -> Optional[str]:
+    """The device of ``export``: the CPU with ``--cpu``, else the one entry of
+    ``--platforms`` (default: the card). Raises on anything else."""
+    platforms = arguments.platforms
+    if platforms is None:
+        return "cpu" if arguments.cpu else None
+    if len(platforms) != 1 or platforms[0] not in EXPORT_PLATFORMS:
+        raise ValueError(
+            f"--platforms takes one device, 'cuda' or 'cpu', not {','.join(platforms)!r}:"
+            " a torch.export artifact is bound to the device it was exported on"
+        )
+    if arguments.cpu and platforms[0] != "cpu":
+        raise ValueError("--cpu exports for the CPU; it contradicts --platforms cuda")
+    return "cpu" if platforms[0] == "cpu" else None
+
+
+def export_model(arguments: Namespace) -> None:
+    from allophant_tpu_torch import serving
+    from allophant_tpu_torch.training.estimator import Estimator
+
+    device = _export_device(arguments)
+    estimator, _indexer = Estimator.restore(
+        arguments.model_path, precision="bfloat16" if arguments.bf16 else None, device=device
+    )
+    exported = serving.export_transcriber(
+        estimator, arguments.batch_size, int(16_000 * arguments.seconds), decode=arguments.decode, device=device
+    )
+    serving.save_transcriber(exported, arguments.output)
+    print(
+        f"Exported {arguments.model_path} at batch {arguments.batch_size} x"
+        f" {arguments.seconds:g}s ({arguments.decode}) to {arguments.output}"
+    )
 
 
 def main(args: Sequence[str] | None = None) -> None:
@@ -956,6 +1020,8 @@ def main(args: Sequence[str] | None = None) -> None:
         predict(arguments)
     elif arguments.mode == "edits":
         edits(arguments)
+    elif arguments.mode == "export":
+        export_model(arguments)
     else:
         raise ValueError(f"Unsupported action: {arguments.mode}")
 

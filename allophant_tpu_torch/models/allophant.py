@@ -65,9 +65,10 @@ class AllophantModel(nn.Module):
     (``whole_run_frozen_prefix``); ``remat`` rematerialises the wav2vec2
     encoder layers in training, keeping ``remat_save_names`` (the
     transformer takes neither, as in the JAX model). ``mesh`` (a
-    ``parallel.mesh.Mesh``) shards the wav2vec2 encoder layers over its model
-    axis; the transformer and the projection stay replicated on every model
-    rank."""
+    ``parallel.mesh.Mesh``) shards over its model axis what JAX's rules shard
+    (``parallel/sharding.py``): the wav2vec2 encoder layers or the
+    transformer's layers, and the projection head's attention classifiers;
+    everything else is replicated on every model rank."""
 
     def __init__(
         self,
@@ -94,10 +95,10 @@ class AllophantModel(nn.Module):
                 remat, remat_save_names, mesh,
             )
         elif isinstance(architecture, TransformerArchitecture):
-            self.acoustic_model = TransformerAcousticModel(architecture, dtype, device, param_dtype)
+            self.acoustic_model = TransformerAcousticModel(architecture, dtype, device, param_dtype, mesh)
         else:
             raise ValueError(f"Unsupported acoustic model architecture: {type(architecture).__name__}")
-        self.projection = HierarchicalProjection(plan, self.head_dtype, device, param_dtype)
+        self.projection = HierarchicalProjection(plan, self.head_dtype, device, param_dtype, mesh)
 
     def forward(
         self,
@@ -180,7 +181,7 @@ def build_model(
     A wav2vec2-pretrained encoder is XLS-R 300M unless
     ``wav2vec2_architecture`` replaces it, cut above the highest "OUTPUT_<i>"
     tap; a pre-LN transformer reads ``feature_size`` features a frame.
-    ``mesh`` shards the wav2vec2 encoder layers over its model axis."""
+    ``mesh`` shards the model over its model axis (``AllophantModel``)."""
     layer_config = architecture.acoustic_model
     if isinstance(layer_config, Wav2Vec2PretrainedConfig):
         if sample_rate != 16_000:

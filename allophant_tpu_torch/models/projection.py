@@ -6,7 +6,13 @@ phoneme layer (the zero-shot mechanism) and the allophone layer.
 
 ``build_projection_plan`` derives the plan and its static tables from an
 attribute graph, the projection config and the phonetic indexer, as the JAX
-package does; ``ProjectionPlan.from_dict`` reads a plan given as data."""
+package does; ``ProjectionPlan.from_dict`` reads a plan given as data.
+
+Over a ``mesh`` with a model axis the attention classifiers
+(``ProjectingMultiheadAttention``) are sharded as JAX shards them: the input
+projection by its output columns, gathered whole before its LayerNorm; q, k
+and v by heads; the output projection by its input rows, reduced over the
+model group. Every other layer is replicated."""
 
 from __future__ import annotations
 
@@ -27,6 +33,13 @@ from allophant_tpu_torch.config import (
 from allophant_tpu_torch.models.layers import Dense, DropoutRng, LayerNorm, dropout
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.oneshot_attention import NEG_INF
+from allophant_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model_parallel,
+    gather_from_model_parallel,
+    model_parallel,
+    output_dense,
+    split_evenly,
+)
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import LanguageAllophoneMappings, PhoneticAttributeIndexer
 
@@ -387,7 +400,10 @@ class AllophoneMapping(nn.Module):
 
 class ProjectingMultiheadAttention(nn.Module):
     """Linear projection -> LayerNorm -> optional sinusoidal positions -> MHA
-    -> output dropout."""
+    -> output dropout. Over a ``mesh`` with a model axis this rank holds
+    hidden/tp columns of the input projection (gathered whole for the
+    LayerNorm), num_heads/tp heads of q, k and v, and the matching rows of the
+    row-parallel output projection."""
 
     def __init__(
         self,
@@ -399,27 +415,34 @@ class ProjectingMultiheadAttention(nn.Module):
         device=None,
         param_dtype=None,
         dropout_rate: float = 0.0,
+        mesh=None,
     ):
         super().__init__()
+        tp, self.group = model_parallel(mesh)
+        self.mesh = mesh
         self.hidden_dimensions = hidden_dimensions
-        self.num_heads = num_heads
+        self.num_heads = split_evenly(num_heads, tp, "attention heads")
+        self.head_dim = hidden_dimensions // num_heads
+        width = self.num_heads * self.head_dim
         self.add_positional_embeddings = add_positional_embeddings
         self.dropout_rate = dropout_rate
-        self.input_projection = Dense(input_dimensions, hidden_dimensions, dtype, device, param_dtype)
+        columns = split_evenly(hidden_dimensions, tp, "projection columns")
+        self.input_projection = Dense(input_dimensions, columns, dtype, device, param_dtype)
         # flax nn.LayerNorm's default epsilon.
         self.layer_norm = LayerNorm(hidden_dimensions, 1e-6, dtype, device)
-        self.q_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
-        self.k_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
-        self.v_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
-        self.out_proj = Dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype)
+        self.q_proj = Dense(hidden_dimensions, width, dtype, device, param_dtype)
+        self.k_proj = Dense(hidden_dimensions, width, dtype, device, param_dtype)
+        self.v_proj = Dense(hidden_dimensions, width, dtype, device, param_dtype)
+        self.out_proj = output_dense(hidden_dimensions, hidden_dimensions, dtype, device, param_dtype, mesh)
 
     def forward(self, inputs: torch.Tensor, lengths: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        hidden = self.layer_norm(self.input_projection(inputs))
+        projected = self.input_projection(copy_to_model_parallel(inputs, self.group))
+        hidden = self.layer_norm(gather_from_model_parallel(projected, self.mesh))
         batch, time, _ = hidden.shape
         if self.add_positional_embeddings:
             hidden = hidden + sinusoidal_positions(time, self.hidden_dimensions, hidden.dtype, hidden.device)[None]
-        heads = self.num_heads
-        head_dim = self.hidden_dimensions // heads
+        hidden = copy_to_model_parallel(hidden, self.group)
+        heads, head_dim = self.num_heads, self.head_dim
         shape = (batch, time, heads, head_dim)
         query = self.q_proj(hidden).reshape(shape) * head_dim**-0.5
         key = self.k_proj(hidden).reshape(shape)
@@ -428,14 +451,14 @@ class ProjectingMultiheadAttention(nn.Module):
         pad_mask = masking.mask_sequence(lengths, time)
         logits = logits.masked_fill(~pad_mask[:, None, None, :], NEG_INF)
         weights = torch.softmax(logits.float(), dim=-1).to(hidden.dtype)
-        context = torch.einsum("bhts,bshd->bthd", weights, value).reshape(batch, time, self.hidden_dimensions)
+        context = torch.einsum("bhts,bshd->bthd", weights, value).reshape(batch, time, heads * head_dim)
         return dropout(self.out_proj(context), self.dropout_rate, rng)
 
 
 class HierarchicalProjection(nn.Module):
     """Executes a :class:`ProjectionPlan` over acoustic-model hidden states."""
 
-    def __init__(self, plan: ProjectionPlan, dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
+    def __init__(self, plan: ProjectionPlan, dtype: torch.dtype = torch.float32, device=None, param_dtype=None, mesh=None):
         super().__init__()
         self.plan = plan
         self.classifiers = nn.ModuleDict()
@@ -445,7 +468,7 @@ class HierarchicalProjection(nn.Module):
             if node.attention is not None:
                 self.classifiers[node.name] = ProjectingMultiheadAttention(
                     node.input_size, node.projection_size, node.attention[0], node.attention[1], dtype, device,
-                    param_dtype, plan.acoustic_model_dropout,
+                    param_dtype, plan.acoustic_model_dropout, mesh,
                 )
             else:
                 self.classifiers[node.name] = Dense(node.input_size, node.projection_size, dtype, device, param_dtype)

@@ -15,7 +15,15 @@ Attention reads q, k and v from one fused projection over [B, T, H·hd]
 forward with K4 backward in training with attention dropout. The JAX layer
 trains through einsum attention with ``nn.Dropout`` on the softmaxed weights;
 the semantics are the same (dropout on the weights), the random draws are the
-port's Philox mask."""
+port's Philox mask.
+
+Tensor parallelism (``mesh`` with a model axis of tp > 1, JAX's shardings,
+``parallel/sharding.py``): each layer holds H/tp heads of the fused QKV
+projection and feedforward/tp columns of ``linear1``; the attention kernels run
+on the rank's heads (keyed by their global index, so the dropout masks are one
+device's); ``out_proj`` and ``linear2`` are row-parallel, their partial sums
+reduced over the model group before the bias; the backward reduces the input
+gradient of the column-parallel projections (``parallel/tensor_parallel.py``)."""
 
 from __future__ import annotations
 
@@ -41,6 +49,13 @@ from allophant_tpu_torch.models.projection import sinusoidal_positions
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.activations import fast_gelu
 from allophant_tpu_torch.ops.attention import key_bias_from_mask, multi_head_attention
+from allophant_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model_parallel,
+    model_parallel,
+    output_dense,
+    rank_offset,
+    split_evenly,
+)
 
 #: flax ``nn.LayerNorm``'s default epsilon.
 LAYER_NORM_EPS = 1e-6
@@ -179,7 +194,8 @@ class SequentialFrontend(nn.Module):
 
 class PreLNTransformerLayer(nn.Module):
     """Pre-LN transformer layer matching the reference's modified torch layer
-    (acoustic_model.py:564-611): the attention residual is taken *after* norm1."""
+    (acoustic_model.py:564-611): the attention residual is taken *after* norm1.
+    Over a ``mesh`` with a model axis, this rank's heads and FFN columns."""
 
     def __init__(
         self,
@@ -192,29 +208,39 @@ class PreLNTransformerLayer(nn.Module):
         dtype,
         device=None,
         param_dtype=None,
+        mesh=None,
     ):
         super().__init__()
-        self.d_model, self.heads = d_model, num_heads
+        tp, self.group = model_parallel(mesh)
+        self.total_heads = num_heads
+        self.heads = split_evenly(num_heads, tp, "attention heads")
+        self.head_offset = rank_offset(mesh, self.heads)
+        self.head_dim = d_model // num_heads
+        self.width = self.heads * self.head_dim
+        self.feedforward_size = feedforward_size
+        self.column_offset = rank_offset(mesh, split_evenly(feedforward_size, tp, "feedforward columns"))
         self.dropout_rate = dropout_rate
         self.activation = activation
         self.norm1 = LayerNorm(d_model, LAYER_NORM_EPS, dtype, device, elementwise_affine)
-        self.qkv_proj = Dense(d_model, 3 * d_model, dtype, device, param_dtype)
-        self.out_proj = Dense(d_model, d_model, dtype, device, param_dtype)
+        self.qkv_proj = Dense(d_model, 3 * self.width, dtype, device, param_dtype)
+        self.out_proj = output_dense(d_model, d_model, dtype, device, param_dtype, mesh)
         self.norm2 = LayerNorm(d_model, LAYER_NORM_EPS, dtype, device, elementwise_affine)
-        self.linear1 = Dense(d_model, feedforward_size, dtype, device, param_dtype)
-        self.linear2 = Dense(feedforward_size, d_model, dtype, device, param_dtype)
+        self.linear1 = Dense(d_model, feedforward_size // tp, dtype, device, param_dtype)
+        self.linear2 = output_dense(feedforward_size, d_model, dtype, device, param_dtype, mesh)
 
     def forward(self, hidden: torch.Tensor, key_bias: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         rate = self.dropout_rate
         hidden = self.norm1(hidden)
-        query, key, value = self.qkv_proj(hidden).split(self.d_model, dim=-1)
-        head_dim = self.d_model // self.heads
-        attention = multi_head_attention(query, key, value, key_bias, head_dim**-0.5, self.heads, rate, rng)
+        qkv = self.qkv_proj(copy_to_model_parallel(hidden, self.group))
+        query, key, value = qkv.split(self.width, dim=-1)
+        attention = multi_head_attention(
+            query, key, value, key_bias, self.head_dim**-0.5, self.heads, rate, rng, self.total_heads, self.head_offset
+        )
         hidden = hidden + dropout(self.out_proj(attention), rate, rng)
 
-        feed = self.linear1(self.norm2(hidden))
+        feed = self.linear1(copy_to_model_parallel(self.norm2(hidden), self.group))
         feed = torch.relu(feed) if self.activation == "relu" else fast_gelu(feed)
-        feed = self.linear2(dropout(feed, rate, rng))
+        feed = self.linear2(dropout(feed, rate, rng, self.feedforward_size, self.column_offset))
         return hidden + dropout(feed, rate, rng)
 
 
@@ -254,9 +280,13 @@ class TransformerArchitecture:
 class TransformerAcousticModel(nn.Module):
     """Frontend + optional sequential frontend + pre-LN transformer collecting every
     layer's output, each passed through the final layer norm (reference :704-722):
-    (features [B, T, F] or samples [B, T], lengths) -> (outputs, lengths)."""
+    (features [B, T, F] or samples [B, T], lengths) -> (outputs, lengths).
+    ``mesh`` shards the transformer layers over its model axis; the frontends
+    and the norms stay replicated."""
 
-    def __init__(self, architecture: TransformerArchitecture, dtype: torch.dtype = torch.float32, device=None, param_dtype=None):
+    def __init__(
+        self, architecture: TransformerArchitecture, dtype: torch.dtype = torch.float32, device=None, param_dtype=None, mesh=None
+    ):
         super().__init__()
         self.arch = architecture
         config = architecture.config
@@ -276,7 +306,7 @@ class TransformerAcousticModel(nn.Module):
         self.layers = nn.ModuleList(
             PreLNTransformerLayer(
                 d_model, transformer.heads, transformer.feedforward_neurons, transformer.dropout_rate,
-                transformer.activation, affine, dtype, device, param_dtype,
+                transformer.activation, affine, dtype, device, param_dtype, mesh,
             )
             for _ in range(transformer.num_layers)
         )

@@ -54,7 +54,13 @@ from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.activations import fast_gelu
 from allophant_tpu_torch.ops.attention import key_bias_from_mask, multi_head_attention
 from allophant_tpu_torch.ops.frame_encoder import FusedFrameConv
-from allophant_tpu_torch.parallel.tensor_parallel import RowParallelDense, copy_to_model_parallel
+from allophant_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model_parallel,
+    model_parallel,
+    output_dense,
+    rank_offset,
+    split_evenly,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,25 +249,6 @@ def rematerialised(function: Callable, rng: Optional[DropoutRng], save_names: Tu
     )
 
 
-def _model_parallel(mesh) -> Tuple[int, Optional[object]]:
-    """(tp, model group) of ``mesh`` (None: one device)."""
-    return (1, None) if mesh is None else (mesh.model_parallel, mesh.model_group)
-
-
-def _split(size: int, parts: int, what: str) -> int:
-    if size % parts:
-        raise ValueError(f"{size} {what} do not split over {parts} model-parallel ranks")
-    return size // parts
-
-
-def _output_dense(in_features: int, out_features: int, dtype, device, param_dtype, mesh) -> Dense:
-    """A Dense of the whole input (one device) or its row-parallel shard."""
-    tp, group = _model_parallel(mesh)
-    if tp == 1:
-        return Dense(in_features, out_features, dtype, device, param_dtype)
-    return RowParallelDense(in_features // tp, out_features, dtype, device, param_dtype, group)
-
-
 class SelfAttention(nn.Module):
     """Multi-head self-attention over the one-shot kernels; q/k/v come from one
     fused projection whose [B, T, 3D] output the kernels read through strides.
@@ -271,14 +258,14 @@ class SelfAttention(nn.Module):
 
     def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None, mesh=None):
         super().__init__()
-        tp, self.group = _model_parallel(mesh)
-        self.heads = _split(arch.num_attention_heads, tp, "attention heads")
+        tp, self.group = model_parallel(mesh)
+        self.heads = split_evenly(arch.num_attention_heads, tp, "attention heads")
         self.total_heads = arch.num_attention_heads
-        self.head_offset = 0 if mesh is None else mesh.model_rank * self.heads
+        self.head_offset = rank_offset(mesh, self.heads)
         self.width = arch.hidden_size // tp
         self.dropout_rate = arch.attention_dropout
         self.qkv_proj = Dense(arch.hidden_size, 3 * self.width, dtype, device, param_dtype)
-        self.out_proj = _output_dense(arch.hidden_size, arch.hidden_size, dtype, device, param_dtype, mesh)
+        self.out_proj = output_dense(arch.hidden_size, arch.hidden_size, dtype, device, param_dtype, mesh)
 
     def project(self, hidden: torch.Tensor) -> torch.Tensor:
         """The fused [B, T, 3D/tp] QKV projection."""
@@ -309,14 +296,14 @@ class FeedForward(nn.Module):
 
     def __init__(self, arch: Wav2Vec2Architecture, dtype: torch.dtype, device=None, param_dtype=None, mesh=None):
         super().__init__()
-        tp, self.group = _model_parallel(mesh)
+        tp, self.group = model_parallel(mesh)
         self.activation_dropout = arch.activation_dropout
         self.hidden_dropout = arch.hidden_dropout
-        width = _split(arch.intermediate_size, tp, "FFN columns")
+        width = split_evenly(arch.intermediate_size, tp, "FFN columns")
         self.total_columns = arch.intermediate_size
-        self.column_offset = 0 if mesh is None else mesh.model_rank * width
+        self.column_offset = rank_offset(mesh, width)
         self.intermediate_dense = Dense(arch.hidden_size, width, dtype, device, param_dtype)
-        self.output_dense = _output_dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype, mesh)
+        self.output_dense = output_dense(arch.intermediate_size, arch.hidden_size, dtype, device, param_dtype, mesh)
 
     def forward(self, hidden: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         hidden = copy_to_model_parallel(hidden, self.group)

@@ -6,7 +6,9 @@ its backpointers in another (counterpart of ``allophant_tpu/ops/beam_kernel.py``
 (``beam_search_warp_kernel`` for K <= 8 and C <= 64, ``beam_search_kernel``
 for wider rows up to K = 16, ``beam_search_wide_kernel`` for every K above),
 and ``backtrace_cuda`` launches ``beam_backtrace_kernel`` from the same
-source. Both take CUDA tensors only; ``ops/decode.py`` routes
+source. The search goes through the custom op ``allophant_torch::beam_search``
+(``kernels/library.py``, whose CUDA implementation is ``launch_beam_search``),
+so that ``torch.export`` can record it. Both take CUDA tensors only; ``ops/decode.py`` routes
 CPU tensors to the plain versions ``beam_search_padded`` and
 ``backtrace_beams_device``.
 
@@ -34,9 +36,24 @@ def _check_cuda(name: str, tensor: torch.Tensor, device) -> None:
 
 
 def beam_search_cuda(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_width: int = 4, blank_index: int = 0):
-    """[B, T, C] log-probabilities (cast to f32) + [B] lengths -> (parents
-    [T, B, K] int32, emitted [T, B, K] int32, scores [B, K] f32), the contract
-    of ``beam_search_padded``. ``beam_search_cuda.launches`` counts launches."""
+    """[B, T, C] log-probabilities (cast to f32) + [B] lengths on a CUDA
+    device -> (parents [T, B, K] int32, emitted [T, B, K] int32, scores
+    [B, K] f32), the contract of ``beam_search_padded``, through the custom op
+    ``allophant_torch::beam_search`` (``kernels/library.py``).
+    ``beam_search_cuda.launches`` counts launches."""
+    from allophant_tpu_torch.kernels import library
+
+    # The op would run the twin on a CPU tensor; the launch checks the rest.
+    _check_cuda("log_emissions", log_emissions, None)
+    return library.beam_search(log_emissions, lengths, int(beam_width), int(blank_index))
+
+
+beam_search_cuda.launches = 0
+
+
+def launch_beam_search(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_width: int, blank_index: int):
+    """The CUDA implementation of K3's custom op: launches the search kernel
+    on CUDA tensors and raises on anything it does not take."""
     _check_cuda("log_emissions", log_emissions, None)
     _check_cuda("lengths", lengths, log_emissions.device)
     if log_emissions.ndim != 3 or lengths.shape != log_emissions.shape[:1]:
@@ -69,9 +86,6 @@ def beam_search_cuda(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_wi
     check_launch("beam_search", status)
     beam_search_cuda.launches += 1
     return parents, emitted, scores
-
-
-beam_search_cuda.launches = 0
 
 
 def backtrace_cuda(parents: torch.Tensor, emitted: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

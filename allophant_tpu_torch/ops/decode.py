@@ -20,7 +20,7 @@ import torch
 
 from allophant_tpu_torch.device import resolve_device, to_device
 from allophant_tpu_torch.ops import masking
-from allophant_tpu_torch.ops.beam_kernel import MAX_CLASSES, backtrace_cuda, beam_search_cuda
+from allophant_tpu_torch.ops.beam_kernel import MAX_CLASSES, backtrace_cuda
 
 
 class CTCHypothesis(NamedTuple):
@@ -426,9 +426,11 @@ def beam_search_padded(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_
 
 def beam_search_device(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_width: int = 4, blank_index: int = 0):
     """The batched prefix beam search where its inputs lie, with the contract
-    of :func:`beam_search_padded`: the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors (``beam_search_cuda.launches`` counts its
-    launches), and an error on any other device.
+    of :func:`beam_search_padded`, through the custom op
+    ``allophant_torch::beam_search`` (``kernels/library.py``): the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors
+    (``beam_search_cuda.launches`` counts its launches), and an error on any
+    other device.
 
     The JAX package routes by a VMEM plan (``plan_beam_kernel``) and by
     measured TPU timings between its Pallas kernel and the ``lax.scan``. The
@@ -436,14 +438,14 @@ def beam_search_device(log_emissions: torch.Tensor, lengths: torch.Tensor, beam_
     class count up to ``MAX_CLASSES``, so neither the plan nor the router has
     a counterpart here. Class counts above ``MAX_CLASSES`` raise on both
     paths: decoded tokens leave the device as int16."""
+    from allophant_tpu_torch.kernels import library
+
     classes = log_emissions.shape[-1]
     if classes > MAX_CLASSES:
         raise ValueError(f"beam search takes at most {MAX_CLASSES} classes (int16 tokens), got {classes}")
-    if log_emissions.device.type == "cpu":
-        return beam_search_padded(log_emissions, lengths, beam_width, blank_index)
-    if log_emissions.device.type == "cuda":
-        return beam_search_cuda(log_emissions, lengths, beam_width, blank_index)
-    raise ValueError(f"beam search runs on CPU or CUDA tensors, not {log_emissions.device}")
+    if log_emissions.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"beam search runs on CPU or CUDA tensors, not {log_emissions.device}")
+    return library.beam_search(log_emissions, lengths, int(beam_width), int(blank_index))
 
 
 def backtrace_beams_device(parents: torch.Tensor, emitted: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

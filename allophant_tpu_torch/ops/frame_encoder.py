@@ -3,7 +3,9 @@
 LayerNorm over channels + exact GELU over raw audio, [B, S] -> [B, S//5 - 1, C].
 
 ``fused_frame_conv`` launches the CUDA kernel ``csrc/frame_encoder.cu`` for
-CUDA tensors and runs the plain twin ``reference_frame_conv`` for CPU tensors.
+CUDA tensors and runs the plain twin ``reference_frame_conv`` for CPU tensors,
+through the custom op ``allophant_torch::frame_conv`` (``kernels/library.py``,
+whose CUDA implementation is ``launch_frame_conv``).
 ``FusedFrameConv`` makes it differentiable: its backward differentiates the
 plain twin, as the JAX package's ``custom_vjp`` differentiates its jnp
 formulation (the TPU kernel has no backward either). The flagship never
@@ -39,15 +41,34 @@ def reference_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float, out
     return F.gelu(normalized).to(out_dtype)
 
 
+def frame_count(samples: int) -> int:
+    """Output frames of ``samples`` raw samples: S // 5 - 1, and none below 10
+    (a symbolic count under ``torch.export``)."""
+    return torch.sym_max(samples // _STRIDE - 1, 0)
+
+
 def fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, out_dtype=torch.bfloat16):
     """``audio``: [B, S] f32; ``kernel``: [10, C] f32, any C >= 1 (the kernel
     takes up to 1,024 channels in one pass and more in chunks of 1,024).
-    Returns [B, S//5 - 1, C] in ``out_dtype``.
+    Returns [B, S//5 - 1, C] in ``out_dtype``, through the custom op
+    ``allophant_torch::frame_conv`` (``kernels/library.py``): the twin for CPU
+    tensors, the kernel for CUDA tensors.
     ``fused_frame_conv.launches`` counts kernel launches."""
-    if audio.device.type == "cpu":
-        return reference_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps, out_dtype)
-    if audio.device.type != "cuda":
+    from allophant_tpu_torch.kernels import library
+
+    if audio.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_frame_conv runs on CPU or CUDA tensors, not {audio.device}")
+    return library.frame_conv(audio, kernel, bias, ln_scale, ln_bias, float(eps), out_dtype)
+
+
+fused_frame_conv.launches = 0
+
+
+def launch_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float, out_dtype) -> torch.Tensor:
+    """The CUDA implementation of the frame encoder's custom op: launches the
+    kernel on CUDA tensors and raises on anything it does not take."""
+    if audio.device.type != "cuda":
+        raise ValueError(f"the frame encoder kernel takes CUDA tensors, not {audio.device}")
     audio = _trim(audio)
     batch, samples = audio.shape
     if audio.dtype != torch.float32 or audio.stride(1) != 1:
@@ -63,7 +84,7 @@ def fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, 
     for tensor in parameters:
         if tensor.device != audio.device:
             raise ValueError("frame encoder parameters must be on the audio's device")
-    frames = max(samples // _STRIDE - 1, 0)
+    frames = frame_count(samples)
     out = torch.empty(batch, frames, channels, dtype=out_dtype, device=audio.device)
     if batch == 0 or frames == 0:
         return out
@@ -77,9 +98,6 @@ def fused_frame_conv(audio, kernel, bias, ln_scale, ln_bias, eps: float = 1e-5, 
     check_launch("frame_encoder", status)
     fused_frame_conv.launches += 1
     return out
-
-
-fused_frame_conv.launches = 0
 
 
 class FusedFrameConv(torch.autograd.Function):

@@ -7,7 +7,10 @@ Each ``*_attention*`` / ``dropout_mask_bits`` wrapper launches its CUDA kernel
 (``csrc/oneshot_attention.cu``, ``csrc/attention_dropout.cu``,
 ``csrc/attention_backward.cu``) for CUDA tensors and runs its plain twin
 (``reference_*``) for CPU tensors; a shape or dtype a kernel does not take
-raises. The kernels serve every sequence length and every head width
+raises. K1's wrapper reaches its kernel through the custom op
+``allophant_torch::oneshot_attention`` (``kernels/library.py``), so that
+``torch.export`` can record it; ``launch_oneshot_attention`` is the op's CUDA
+implementation. The training kernels are plain ctypes calls. The kernels serve every sequence length and every head width
 (``head_plan``): a width that is not a multiple of 8 is zero-padded to one in
 the wrapper, which is exact, and a width above ``MAX_TILE_HEAD_DIM`` runs the
 chunked route (``csrc/attention_wide.cuh``), so the TPU's plan tables
@@ -335,12 +338,26 @@ def _check_rate(rate: float) -> None:
 
 
 def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) -> torch.Tensor:
-    """K1: [B, T, H*hd] attention with additive key bias [B, T] f32.
+    """K1: [B, T, H*hd] attention with additive key bias [B, T] f32, through
+    the custom op ``allophant_torch::oneshot_attention``
+    (``kernels/library.py``), which ``torch.export`` records as one node.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel (and raise on
     anything it does not take). ``oneshot_attention.launches`` counts launches."""
-    if query.device.type == "cpu":
-        return reference_oneshot(query, key, value, key_bias, sm_scale, heads)
+    from allophant_tpu_torch.kernels import library
+
+    if query.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"oneshot_attention runs on CPU or CUDA tensors, not {query.device}")
+    return library.oneshot_attention(query, key, value, key_bias, float(sm_scale), int(heads))
+
+
+oneshot_attention.launches = 0
+
+
+def launch_oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) -> torch.Tensor:
+    """The CUDA implementation of K1's custom op: launches the kernel on CUDA
+    tensors and raises on anything it does not take; returns a new contiguous
+    tensor."""
     (query, key, value), head_dim, padded = _check_kernel_inputs(
         "oneshot_attention", query, (key, value), key_bias, heads
     )
@@ -348,7 +365,7 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
     key_bias = key_bias.contiguous()
     out = torch.empty(batch, time, model_dim, dtype=query.dtype, device=query.device)
     if batch == 0 or time == 0:
-        return _unpad_heads(out, heads, head_dim)
+        return _unpad_heads(out, heads, head_dim).contiguous()
     forward = load_kernel("oneshot_attention")
     with torch.cuda.device(query.device):
         status = forward(
@@ -359,10 +376,7 @@ def oneshot_attention(query, key, value, key_bias, sm_scale: float, heads: int) 
         )
     check_launch("oneshot_attention", status)
     oneshot_attention.launches += 1
-    return out if padded == head_dim else _unpad_heads(out, heads, head_dim)
-
-
-oneshot_attention.launches = 0
+    return out if padded == head_dim else _unpad_heads(out, heads, head_dim).contiguous()
 
 
 def oneshot_dropout_attention(

@@ -19,6 +19,8 @@ weights), or with ``--checks`` the jobs of ``run_checks`` in RANKS processes.
 
 ``sharded_step`` is the step without dropout, returning the whole gradients,
 Adam moments and parameters for comparison with one device or with JAX;
+``config_step`` the same step of a model built from a configuration (the
+transformer acoustic model, a head with attention classifiers);
 ``sharded_predictions`` the three prediction paths under
 ``Estimator.use_data_parallel``. The tests and ``chip_smoke.py`` run them in
 spawned processes (``parallel.launch.spawn``)."""
@@ -153,9 +155,57 @@ def sharded_step(
     (metrics, whole tensors): with ``gather``, the clipped gradients, Adam's
     two moments and the updated parameters by name, gathered over the model
     group (every rank of the mesh takes part), as numpy."""
+    config, model = tiny_flagship(device, mesh, state, architecture=architecture, remat=remat)
+    return _step(config, model, mesh, device, microbatches, dropout_seed, gather)
+
+
+def config_model(device, mesh: Optional[Mesh], model_inputs: Mapping, state: Optional[Mapping] = None):
+    """(nn config, float32 model) of ``model_inputs`` (``config``: a Config
+    dict, ``table``: a feature table's CSV text, ``inventories``: the
+    indexer's ``LanguageInventories`` or None, ``feature_size``) on
+    ``device``, this rank's shard over ``mesh``; weights from the one-device
+    ``state`` (by name) or seed 0."""
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.models.allophant import attribute_graph_from_config, build_model
+    from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
+    from allophant_tpu_torch.weights import load_full_state, seeded_initialization
+
+    config = Config.load(model_inputs["config"])
+    indexer = PhoneticAttributeIndexer.from_config(config, model_inputs["table"], model_inputs.get("inventories"))
+    model = build_model(
+        config.nn, model_inputs["feature_size"], 16_000, attribute_graph_from_config(config, indexer), indexer,
+        device=device, param_dtype=torch.float32, mesh=mesh,
+    ).model
+    if state is None:
+        seeded_initialization(model, 0, mesh)
+    else:
+        load_full_state(model, state, mesh)
+    return config.nn, model
+
+
+def config_step(
+    mesh: Optional[Mesh],
+    device,
+    model_inputs: Mapping,
+    microbatches: Mapping[str, np.ndarray],
+    state: Optional[Mapping] = None,
+    dropout_seed: Optional[int] = None,
+) -> Tuple[Dict[str, float], Dict[str, Dict[str, np.ndarray]]]:
+    """``sharded_step`` of the float32 model of ``model_inputs``
+    (``config_model``). The whole tensors also hold ``initial``, the loaded
+    parameters gathered back over the model group before the step."""
+    config, model = config_model(device, mesh, model_inputs, state)
+    named = dict(model.named_parameters())
+    # Copies: a CPU parameter's numpy view would follow the step's update.
+    initial = {name: value.copy() for name, value in _host(named if mesh is None else gather_state(named, mesh)).items()}
+    metrics, tensors = _step(config, model, mesh, device, microbatches, dropout_seed, True)
+    tensors["initial"] = initial
+    return metrics, tensors
+
+
+def _step(config, model, mesh: Optional[Mesh], device, microbatches, dropout_seed: Optional[int], gather: bool):
     from allophant_tpu_torch.training import train_step
 
-    config, model = tiny_flagship(device, mesh, state, architecture=architecture, remat=remat)
     optimizer = train_step.create_optimizer(config, model.architecture.hidden_size, model.parameters())
     loss_plan = train_step.build_loss_plan(config, model.plan.allophone_shape is not None)
     step = train_step.make_train_step(
@@ -307,8 +357,9 @@ def checkpoint_round_trip(mesh: Mesh, device, path: str, microbatches: Mapping[s
 
 def run_checks(rank: int, world_size: int, device, inputs_path: str, output_path: str) -> None:
     """Runs the jobs of ``inputs_path`` (a ``torch.save``d dict: ``jobs``, a
-    list of dicts with ``name``, ``kind`` ("step", "dryrun", "draws",
-    "checkpoint" or "predict"), ``data_parallel``, ``model_parallel`` and the kind's inputs;
+    list of dicts with ``name``, ``kind`` ("step", "config_step", "dryrun",
+    "draws", "checkpoint" or "predict"), ``data_parallel``, ``model_parallel``
+    and the kind's inputs;
     ``state``, the one-device weights by name, or None for seed 0) on every
     rank of a spawned group (``launch.spawn``); the first rank writes
     {name: result} to ``output_path``. Each job runs on a mesh over the first
@@ -334,6 +385,8 @@ def run_checks(rank: int, world_size: int, device, inputs_path: str, output_path
                 mesh, device, job["microbatches"], state, job.get("dropout_seed"), architecture,
                 job.get("gather", True), job.get("remat", False),
             )
+        elif kind == "config_step":
+            result = config_step(mesh, device, job["model"], job["microbatches"], job.get("state"), job.get("dropout_seed"))
         elif kind == "dryrun":
             result = dryrun_multichip(mesh, device, state, job.get("dropout_seed", 1))
         elif kind == "draws":

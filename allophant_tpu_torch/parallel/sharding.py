@@ -1,25 +1,26 @@
 """Parameter sharding rules: tensor parallelism over the model axis
 (counterpart of ``allophant_tpu/parallel/sharding.py``).
 
-JAX's rules on the port's names, for the wav2vec2 encoder layers: the
-column-parallel projections (``q_proj``, ``k_proj``, ``v_proj``,
-``intermediate_dense``) shard their output features, weight and bias; the
-row-parallel ones (``out_proj``, ``output_dense``) their input features,
-weight only (the bias is added after the reduce). Everything else is
-replicated. The port fuses q, k and v into one ``qkv_proj`` [3D, D]: its
-shard takes, of each of the three, the rows of the rank's heads, so the local
-tile is again a fused [3D/tp, D] projection of H/tp heads.
+JAX's rules on the port's names, by a parameter's module name wherever it
+occurs, as JAX matches its suffixes: the column-parallel projections
+(``q_proj``, ``k_proj``, ``v_proj``, ``intermediate_dense``, ``linear1``,
+``input_projection``) shard their output features, weight and bias; the
+row-parallel ones (``out_proj``, ``output_dense``, ``linear2``) their input
+features, weight only (the bias is added after the reduce). Everything else
+is replicated. They occur in the wav2vec2 encoder layers, the transformer
+acoustic model's layers and the projection head's attention classifiers.
+The wav2vec2 encoder and the transformer fuse q, k and v into one
+``qkv_proj`` [3D, D]: its shard takes, of each of the three, the rows of the
+rank's heads, so the local tile is again a fused [3D/tp, D] projection of
+H/tp heads.
 
 Torch keeps a Dense weight as [out, in], where JAX keeps [in, out]: a JAX
 spec ``(None, "model")`` is the port's dimension 0, ``("model", None)`` its
-dimension 1. JAX also shards the transformer acoustic model's ``linear1``,
-``linear2`` and ``input_projection`` and the projection head's attention;
-the port keeps those replicated (replication is always right, only slower)."""
+dimension 1."""
 
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -27,10 +28,11 @@ import torch
 
 from allophant_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, broadcast, gather_rows
 
-_ENCODER_LAYER = re.compile(r"^acoustic_model\.encoder\.layers\.\d+\.")
 # Module name -> fused parts of its column-parallel output.
-_COLUMN_PARALLEL = {"qkv_proj": 3, "intermediate_dense": 1}
-_ROW_PARALLEL = ("out_proj", "output_dense")
+_COLUMN_PARALLEL = {
+    "qkv_proj": 3, "q_proj": 1, "k_proj": 1, "v_proj": 1, "intermediate_dense": 1, "linear1": 1, "input_projection": 1,
+}
+_ROW_PARALLEL = ("out_proj", "output_dense", "linear2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +57,9 @@ class ParamSpec:
 def param_spec(name: str) -> ParamSpec:
     """The layout of the port's parameter ``name`` (a ``named_parameters``
     key) over the model axis."""
-    if _ENCODER_LAYER.match(name) is None:
-        return ParamSpec()
     *path, leaf = name.split(".")
+    if not path:
+        return ParamSpec()
     parent = path[-1]
     if parent in _COLUMN_PARALLEL and leaf in ("weight", "bias"):
         return ParamSpec(0, _COLUMN_PARALLEL[parent])

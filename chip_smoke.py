@@ -116,14 +116,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      at tp = 2 held to this process's one-device step, a tp = 2 step with
      every dropout on held to the one-device step of the same seed (the
      ranks key K5/K4's masks by the global head and cut the FFN's mask from
-     the whole), ``use_data_parallel`` float32 greedy and beam-4
+     the whole), the same of the transformer (6 layers, d_model 512, an
+     8-head attention classifier on its phoneme head, every dropout on),
+     ``use_data_parallel`` float32 greedy and beam-4
      predictions of the serving requests held to one device on the same
      rows (their distance from one device on the whole batches must equal
      one device's on the same rows), and ``train`` over two ranks on the
      train CLI phase's corpus at 2 layers: SIGTERM to rank 1 alone, both
      stop after the same step, one ``interrupted.ckpt``, ``--restore`` to
      the last epoch; on two or more cards also a plain full-width
-     ``train`` that spawns a rank a card, stopped by SIGTERM to it;
+     ``train`` that spawns a rank a card, stopped by SIGTERM to it, and a
+     plain 2-layer transformer ``train`` at dropout 0 to its end and
+     ``--restore`` for one more epoch, its parameters held to the same two
+     runs in one process;
  19. pretrained: the full-width XLS-R 300M written as the hub keeps it
      (``config.json`` and a ``Wav2Vec2ForPreTraining`` ``pytorch_model.bin``
      of seeded values, about 1.27 GB) into a temporary ``HF_HUB_CACHE``;
@@ -137,10 +142,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      the train CLI phase's corpus; ``train -f`` of the 6-layer transformer
      for an epoch (K5 and K4 a layer and microbatch, K1 in validation,
      twins forbidden); a float32 2-layer ``train -f`` against the same run
-     on features computed on the fly (and that run again, the card's
-     run-to-run floor); the full-width flagship ``train -f`` from a
+     on features computed on the fly (the store's features bit-equal to the
+     feature function of every clip; the runs' parameter distances printed
+     beside that run again, the card's run-to-run floor); the full-width flagship ``train -f`` from a
      raw-sample store for 2 steps (K2 once, K5 and K4 24 times a
-     microbatch); each CLI's seconds.
+     microbatch); each CLI's seconds;
+ 21. export: ``serving.export_transcriber`` of the full-width "mixed"
+     flagship at 8 x 163,840 samples (the first serving request's batch in
+     its live length bucket) for greedy and beam4, ``save_transcriber``, and
+     the artifact loaded in a fresh process (this script with
+     --serve-artifact-child) that imports no model, training or data module
+     and runs the batch with the twins forbidden (K1 24 times, K2 once, K3
+     once a beam call); greedy grids integer-equal to the live
+     ``predict_decoded``, the beam n-best to ``predict_beam_decoded``;
+     export, save and load seconds, artifact size, request wall time beside
+     the live call's; K1 through its custom op against its launch called
+     directly.
 Each phase prints its seconds. Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -445,7 +462,7 @@ def phase_attention(serve_lengths, serve_time) -> dict:
     """K1 against its twin at the serving shape (the first request's frame
     lengths) and at T = 512, 1536 and 6400; returns the JSON entry of the
     serving shape in bf16."""
-    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention, reference_oneshot
+    from allophant_tpu_torch.ops.oneshot_attention import launch_oneshot_attention, oneshot_attention, reference_oneshot
 
     batch, heads, head_dim = 8, 16, 64
     scale = head_dim**-0.5
@@ -506,7 +523,9 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                 f"oneshot_attention {dtype_name} T={time_steps} disagrees: rms ratio {rms_ratio}, share {worst}",
             )
             if label == "serve" and dtype == torch.bfloat16:
-                kernel_readings = [cuda_ms(lambda: oneshot_attention(q, k, v, bias, scale, heads), 20) for _ in range(3)]
+                # The kernel's launch, as the custom op's CUDA implementation
+                # makes it; the op's own cost is the export phase's line.
+                kernel_readings = [cuda_ms(lambda: launch_oneshot_attention(q, k, v, bias, scale, heads), 20) for _ in range(3)]
                 kernel_ms = float(np.median(kernel_readings))
                 plain_ms = cuda_ms(lambda: reference_oneshot(q, k, v, bias, scale, heads), 5)
                 shape4 = (batch, time_steps, heads, head_dim)
@@ -2493,14 +2512,16 @@ def train_cli_child(arguments: list) -> int:
     main(arguments)`` in this process (its own signal handlers), with the
     plain twins forbidden on the card, then prints one JSON line: the
     launches of each counted kernel, the seconds of each ``Estimator.save``
-    and of ``Estimator.restore``. ``--layers N`` first cuts the encoder of
-    every model it builds to N layers."""
+    and of ``Estimator.restore``, and each training step's logged metrics
+    (``steps``: step, loss, gradient_norm, ...). ``--layers N`` first cuts the
+    encoder of every model it builds to N layers."""
     import logging
 
     sys.path.insert(0, str(HERE))
     from allophant_tpu_torch.cli.run import main as cli_main
     from allophant_tpu_torch.phonetics.features import SingletonFeatureWarning
     from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.training.run import MetricsLogger
 
     warnings.simplefilter("ignore", SingletonFeatureWarning)
     logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(name)s %(message)s")
@@ -2519,6 +2540,14 @@ def train_cli_child(arguments: list) -> int:
         return value
 
     Estimator.save, Estimator.restore = timed_save, classmethod(timed_restore)
+    steps, log_step = [], MetricsLogger.log_step
+
+    def recorded_log_step(self, step, metrics, prefix="training"):
+        if prefix == "training":
+            steps.append({"step": int(step), **{name: float(value) for name, value in metrics.items()}})
+        log_step(self, step, metrics, prefix)
+
+    MetricsLogger.log_step = recorded_log_step
     if arguments[:1] == ["--layers"]:
         from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 
@@ -2538,7 +2567,9 @@ def train_cli_child(arguments: list) -> int:
         cli_main(arguments)
     if not on_cpu:
         torch.cuda.synchronize()
-    report = {"launches": {name: counter.launches for name, counter in counters.items()}, "saves": saves, "restores": restores}
+    report = {
+        "launches": {name: counter.launches for name, counter in counters.items()}, "saves": saves, "restores": restores, "steps": steps,
+    }
     print("train-cli-child " + json.dumps(report), flush=True)
     return 0
 
@@ -2745,6 +2776,140 @@ def multi_gpu_route():
     return devices, backend(devices)
 
 
+# The tensor-parallel transformer step: the transformer phase's model
+# (d_model 512, 8 heads of 64, FFN 2048, 6 layers, 80 filterbanks) with an
+# attention classifier of 8 heads on the composed phoneme head, float32, on
+# A = 2 microbatches of 8 sequences of 2-4 s.
+MULTI_TRANSFORMER_SECONDS, MULTI_TRANSFORMER_HEAD_HEADS = (2, 4), 8
+
+
+def multi_gpu_transformer_inputs() -> tuple:
+    """(``dryrun.config_model``'s inputs, numpy microbatches) of the
+    tensor-parallel transformer step, every dropout at 0.1."""
+    from allophant_tpu_torch.demo import FLAGSHIP_LANGUAGES, demo_feature_table_csv
+    from allophant_tpu_torch.parallel import dryrun
+    from allophant_tpu_torch.phonetics.features import LanguageInventories, PhoneticAttributeIndexer
+
+    config = transformer_config_dict(0.1)
+    config["nn"]["mixed_precision"] = False
+    for entry in config["nn"]["projection"]["classes"]:
+        if entry["name"] == "phoneme":
+            entry["time_layer"] = {"type": "multi-head-attention", "num_heads": MULTI_TRANSFORMER_HEAD_HEADS, "positional_embeddings": True}
+    table = demo_feature_table_csv()
+    bootstrap = PhoneticAttributeIndexer("phoible", table)
+    codes = list(FLAGSHIP_LANGUAGES[:4])
+    inventories = LanguageInventories({index: bootstrap.phoneme_inventory(code) for index, code in enumerate(codes)}, codes)
+    model_inputs = {"config": config, "table": table, "inventories": inventories, "feature_size": TRANSFORMER_FEATURES}
+    _config, template = dryrun.config_model("cpu", None, model_inputs)
+    arrays = transformer_microbatches(template, TRAIN_ACCUMULATION, "cpu", seed=8, seconds=MULTI_TRANSFORMER_SECONDS)
+    return model_inputs, {key: value.numpy() for key, value in arrays.items()}
+
+
+@contextlib.contextmanager
+def relu_masks(recorded=None, replayed=None, flips=None):
+    """Within it, ``torch.relu`` (which only the transformer's FFN calls)
+    either appends each call's mask, ``input > 0`` bit-packed along the last
+    axis, to ``recorded``; or multiplies each call's input by the next mask of
+    ``replayed`` in place of its own, so that the forward and its gradient
+    follow that mask, and appends to ``flips`` (elements whose sign parts from
+    the mask, the largest ``|input|`` among them, the largest of all)."""
+    relu = torch.relu
+    masks = iter(replayed or ())
+
+    def patched(features):
+        positive = features > 0
+        if recorded is not None:
+            recorded.append(np.packbits(positive.cpu().numpy(), axis=-1))
+            return relu(features)
+        width = features.shape[-1]
+        mask = torch.from_numpy(np.unpackbits(next(masks), axis=-1, count=width).astype(bool)).to(features.device)
+        flipped = positive != mask
+        magnitude = features.detach().abs()
+        flips.append((int(flipped.sum()), float(magnitude[flipped].max()) if flipped.any() else 0.0, float(magnitude.max())))
+        return features * mask.to(features.dtype)
+
+    torch.relu = patched
+    try:
+        yield
+    finally:
+        torch.relu = relu
+
+
+def transformer_tp_rank_step(mesh, device, inputs: dict, keep_tensors: bool) -> dict:
+    """This rank's share of the float32 tp = 2 transformer step with every
+    dropout on (seed MULTI_DROPOUT_SEED), twins forbidden, launches counted;
+    with this rank's FFN ReLU masks (``relu_masks``: its columns)."""
+    from allophant_tpu_torch.parallel import dryrun
+
+    masks = []
+    with TwinsForbidden(), relu_masks(recorded=masks):
+        (metrics, tensors), launches = counted(
+            lambda: dryrun.config_step(mesh, device, inputs["transformer"], inputs["transformer_microbatches"], None, MULTI_DROPOUT_SEED)
+        )
+    return {"metrics": metrics, "launches": launches, "tensors": tensors if keep_tensors else None, "relu_masks": masks}
+
+
+def check_transformer_tp(ranks: list, transformer_inputs: dict, transformer_batches: dict, reference: tuple, floor: float) -> dict:
+    """The ranks' tp = 2 transformer step (``transformer_tp_rank_step``)
+    against this process's one-device step of the same seed (``reference``:
+    its metrics and whole tensors; ``floor``: that step's own run-to-run
+    distance). ReLU's kink parts the two: the row-parallel sums round
+    otherwise, and a pre-activation within that rounding of zero takes the
+    other sign, which moves a whole term of its ``linear1`` row's gradient.
+    So the one device runs the step again with the ranks' ReLU masks (their
+    columns joined), which leaves only the sums' rounding: metrics and every
+    leaf are held to it at the wav2vec2 dropout step's limits, and each
+    flipped pre-activation to within MULTI_METRIC_RTOL of its call's largest
+    ``|h|`` (a rounding-level crossing of 0); against the plain one-device
+    step the metrics at the float32 limits, the leaves printed. Returns the
+    launches of rank 0."""
+    from allophant_tpu_torch.parallel import dryrun
+
+    got = ranks[0]["transformer_tp"]
+    metrics, plain = reference
+    for key, value in metrics.items():
+        rtol = MULTI_NORM_RTOL if key == "grad_norm" else MULTI_METRIC_RTOL
+        check(abs(got["metrics"][key] - value) <= rtol * abs(value), f"multi-GPU transformer tp: {key} {got['metrics'][key]} vs one device {value}")
+    rank_masks = [result["transformer_tp"]["relu_masks"] for result in ranks]
+    check(len({len(masks) for masks in rank_masks}) == 1, "multi-GPU transformer tp: the ranks made other ReLU calls")
+    joined = [np.concatenate(calls, axis=-1) for calls in zip(*rank_masks)]
+    flips = []
+    with relu_masks(replayed=joined, flips=flips):
+        replay_metrics, replay = dryrun.config_step(None, "cuda", transformer_inputs, transformer_batches, None, MULTI_DROPOUT_SEED)
+    check(len(flips) == len(joined), f"multi-GPU transformer tp: {len(flips)} ReLU calls on one device, {len(joined)} on the ranks")
+    for key, value in replay_metrics.items():
+        rtol = MULTI_NORM_RTOL if key == "grad_norm" else MULTI_METRIC_RTOL
+        check(abs(got["metrics"][key] - value) <= rtol * abs(value),
+              f"multi-GPU transformer tp: {key} {got['metrics'][key]} vs one device with the ranks' ReLU masks {value}")
+    worst = {
+        kind: check_leaves(
+            got["tensors"][kind], replay[kind], MULTI_DROPOUT_SECOND_SHARE if kind == "exp_avg_sq" else MULTI_DROPOUT_SHARE,
+            f"multi-GPU transformer tp {kind} (one device with the ranks' ReLU masks)",
+        )
+        for kind in ("grads", "exp_avg", "exp_avg_sq")
+    }
+    plain_shares = leaf_shares(got["tensors"]["grads"], plain["grads"], MULTI_SHARE)
+    plain_leaf = max(plain_shares, key=plain_shares.get)
+    flipped = sum(count for count, _largest, _scale in flips)
+    kink = max((largest / scale for count, largest, scale in flips if count), default=0.0)
+    check(kink <= MULTI_METRIC_RTOL, f"multi-GPU transformer tp: a ReLU pre-activation {kink:.3e} of its call's largest took the other sign")
+    layers = transformer_inputs["config"]["nn"]["acoustic_model"]["transformer"]["num_layers"]
+    print(
+        f"multi-GPU tp = 2 float32 transformer step (d_model 512, {layers} layers of 8 heads, FFN 2048, an attention classifier of"
+        f" {MULTI_TRANSFORMER_HEAD_HEADS} heads on the phoneme head; every dropout 0.1; K5 and K4 at heads 4..7 of 8 on rank 1),"
+        f" seed {MULTI_DROPOUT_SEED}: against one device with the ranks' ReLU masks: loss {got['metrics']['mean_loss']:.6f} vs"
+        f" {replay_metrics['mean_loss']:.6f}, grad_norm {got['metrics']['grad_norm']:.6f} vs {replay_metrics['grad_norm']:.6f},"
+        f" worst share of a leaf's largest {worst} (limits {MULTI_DROPOUT_SHARE}, second moment {MULTI_DROPOUT_SECOND_SHARE});"
+        f" ReLU pre-activations of another sign than one device's: {flipped} of {sum(mask.size * 8 for mask in joined)} over"
+        f" {len(flips)} calls (per call {[count for count, _largest, _scale in flips]}), the largest |pre-activation| among them"
+        f" {kink:.3e} of its call's largest; against the plain one-device step: loss {metrics['mean_loss']:.6f}, gradients"
+        f" {plain_shares[plain_leaf]:.3e} of a leaf's largest at {plain_leaf} (the one-device step twice: {floor:.3e});"
+        f" launches {got['launches']}",
+        flush=True,
+    )
+    return got["launches"]
+
+
 # Batch axis of each prediction array: grids [H, B, T'+1], beam tokens
 # [H, T, B, K], beam scores [H, B, K], log-probs [B, T, C].
 MULTI_BATCH_AXES = {"grid": 1, "beam_tokens": 2, "beam_scores": 1}
@@ -2857,8 +3022,8 @@ def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_
     """One rank of the multi-GPU phase (spawned by ``parallel.launch.spawn``):
     the full-width mixed dp = 2 steps, the float32 4-layer dp = 2 and
     tp = 2 steps (and a tp = 2 step with every dropout on, K5 at 8 heads of
-    the 16), and ``use_data_parallel``'s float32 predictions of the serving
-    requests, each with twins forbidden and launches counted. Writes its
+    the 16), the float32 tp = 2 transformer step with every dropout on, and
+    ``use_data_parallel``'s float32 predictions of the serving requests, each with twins forbidden and launches counted. Writes its
     readings to ``output_path`` with its rank in the name; rank 0 also the
     whole gradients and moments of the float32 steps and the predictions."""
     import warnings as warning_filters
@@ -2886,6 +3051,8 @@ def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_
             )
         results[label] = {"metrics": metrics, "launches": launches, "tensors": tensors if rank == 0 else None}
         torch.cuda.empty_cache()
+    results["transformer_tp"] = transformer_tp_rank_step(model_mesh, device, inputs, rank == 0)
+    torch.cuda.empty_cache()
     from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
 
     estimator = dryrun.serving_flagship(device, architecture=Wav2Vec2Architecture()).use_data_parallel(data_mesh)
@@ -2897,18 +3064,25 @@ def multi_gpu_rank(rank: int, world_size: int, device, inputs_path: str, output_
     torch.save(results, output_path.format(rank=rank))
 
 
+def leaf_shares(got: dict, expected: dict, share: float) -> dict:
+    """Per leaf name: its largest distance over its scale, the larger of the
+    leaf's largest magnitude and MULTI_FLOOR / ``share`` of the largest of all
+    leaves."""
+    floor = MULTI_FLOOR * max(np.abs(value).max() for value in expected.values())
+    return {
+        name: float(np.abs(got[name] - value).max()) / max(float(np.abs(value).max()), floor / share)
+        for name, value in expected.items()
+    }
+
+
 def check_leaves(got: dict, expected: dict, share: float, label: str) -> float:
     """Per leaf: within ``share`` of the leaf's largest magnitude, or
     MULTI_FLOOR of the largest of all leaves; returns the worst share."""
     check(set(got) == set(expected), f"{label}: other leaves")
-    floor = MULTI_FLOOR * max(np.abs(value).max() for value in expected.values())
-    worst = 0.0
-    for name, value in expected.items():
-        scale = max(np.abs(value).max(), floor / share)
-        error = float(np.abs(got[name] - value).max())
-        worst = max(worst, error / scale)
-        check(error <= share * scale, f"{label} {name}: {error:.3e} off, limit {share * scale:.3e}")
-    return worst
+    shares = leaf_shares(got, expected, share)
+    for name, value in shares.items():
+        check(value <= share, f"{label} {name}: {value:.3e} of its scale off, limit {share}")
+    return max(shares.values())
 
 
 def phase_ctc_long(card: str) -> None:
@@ -3092,6 +3266,69 @@ def phase_multi_gpu_launch(root: Path, card: str) -> None:
     )
 
 
+# The whole plain run over two cards: the transformer at 2 layers, dropout 0,
+# float32, WHOLE_RUN_EPOCHS epochs, then --restore for one more.
+WHOLE_RUN_LAYERS, WHOLE_RUN_EPOCHS = 2, 2
+
+
+def whole_run_config(root: Path, epochs: int) -> dict:
+    """The train CLI phase's config with the transformer phase's acoustic
+    model cut to WHOLE_RUN_LAYERS layers, every dropout 0, float32, on 80
+    filterbanks computed on the fly, ``epochs`` epochs."""
+    config = json.loads((root / "train_cli_config.json").read_text(encoding="utf-8"))
+    transformer = transformer_config_dict(0.0)
+    transformer["nn"]["acoustic_model"]["transformer"]["num_layers"] = WHOLE_RUN_LAYERS
+    config["nn"]["acoustic_model"] = transformer["nn"]["acoustic_model"]
+    config["preprocessing"] = transformer["preprocessing"]
+    config["nn"]["projection"]["acoustic_model_dropout"] = 0.0
+    config["nn"].update(mixed_precision=False, maximum_iterations=epochs)
+    return config
+
+
+def phase_multi_gpu_whole_run(root: Path, card: str) -> None:
+    """A plain ``allophant train`` (no torchrun) over two visible cards, which
+    spawns a rank a card over NCCL, to its end, then ``--restore`` for one
+    more epoch; the same two runs in one process on one card. The last
+    epoch's checkpoints hold the same parameters within the data-parallel
+    limits: each leaf within MULTI_SHARE of its largest magnitude. Needs
+    MULTI_RANKS cards."""
+    from allophant_tpu_torch.training.checkpoint import load_checkpoint
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = visible.split(",") if visible else [str(index) for index in range(torch.cuda.device_count())]
+    finals, seconds = {}, {}
+    for label, devices in (("two cards", cards[:MULTI_RANKS]), ("one process", cards[:1])):
+        save_path = root / f"whole_run_{len(devices)}"
+        started = time.perf_counter()
+        for epochs, extra in ((WHOLE_RUN_EPOCHS, []), (WHOLE_RUN_EPOCHS + 1, ["--restore"])):
+            arguments = [
+                "train", str(root / "cv"), "-t", "common-voice", "-j", json.dumps(whole_run_config(root, epochs)),
+                "-a", str(root / "table.csv"), "-d", "-s", str(save_path), *extra,
+            ]
+            log_path = root / f"whole_run_{len(devices)}_{epochs}.log"
+            with open(log_path, "w", encoding="utf-8") as log:
+                run = subprocess.run(
+                    [sys.executable, "-m", "allophant_tpu_torch.cli.run", *arguments], stdin=subprocess.DEVNULL,
+                    stdout=subprocess.PIPE, stderr=log, text=True, cwd=str(HERE), timeout=900,
+                    env={**os.environ, "CUDA_VISIBLE_DEVICES": ",".join(devices), "PYTHONPATH": str(HERE)},
+                )
+            if run.returncode != 0:
+                print(log_path.read_text(encoding="utf-8", errors="replace")[-4000:], flush=True)
+            check(run.returncode == 0, f"multi-GPU whole run on {label}, {epochs} epochs: exit code {run.returncode}")
+        seconds[label] = time.perf_counter() - started
+        final = load_checkpoint(str(save_path / f"epoch-{WHOLE_RUN_EPOCHS + 1}.ckpt"))
+        check(int(final.epoch.epoch) == WHOLE_RUN_EPOCHS + 1, f"multi-GPU whole run on {label}: ended at {final.epoch}")
+        finals[label] = {"/".join(path): np.asarray(value) for path, value in tree_leaves(final.variables["params"])}
+    worst = check_leaves(finals["two cards"], finals["one process"], MULTI_SHARE, "multi-GPU whole run parameters")
+    print(
+        f"multi-GPU whole run: plain train over cards {cards[:MULTI_RANKS]} to epoch {WHOLE_RUN_EPOCHS}, then --restore to epoch"
+        f" {WHOLE_RUN_EPOCHS + 1} (transformer, {WHOLE_RUN_LAYERS} layers, dropout 0, float32): {seconds['two cards']:.1f} s;"
+        f" the same in one process {seconds['one process']:.1f} s; the last checkpoints' parameters worst share of a leaf's"
+        f" largest {worst:.3e} (limit {MULTI_SHARE}); {card}",
+        flush=True,
+    )
+
+
 def phase_multi_gpu(results: dict, root: Path) -> None:
     """Two ranks on the card(s), one process each (``parallel/``): NCCL over
     two cards, or gloo with both on card 0 (correctness, not scaling). The
@@ -3102,11 +3339,17 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
     2. a full-width 4-layer flagship in float32, dropout off: one dp = 2 and
        one tp = 2 step (8 heads of 64 a rank), each equal to this process's
        one-device step; a tp = 2 step with every dropout on, equal to the
-       one-device step of the same seed (K5 and K4 at 8 of 16 heads);
+       one-device step of the same seed (K5 and K4 at 8 of 16 heads); the
+       same of the transformer (6 layers, d_model 512) with an attention
+       classifier on its head, against one device given the ranks' ReLU
+       masks (``check_transformer_tp``);
     3. ``use_data_parallel`` greedy and beam-4 over the serving requests in
        float32: log-probs within 1e-4 of one device, grid cells that differ
        counted (0 expected);
-    4. ``allophant train`` over two ranks (``phase_multi_gpu_cli``);
+    4. ``allophant train`` over two ranks (``phase_multi_gpu_cli``); on two
+       or more cards also the plain launch stopped by SIGTERM
+       (``phase_multi_gpu_launch``) and a whole plain run and its resumption
+       against one process (``phase_multi_gpu_whole_run``);
     5. the CTC gradient at 500 and 1,000 frames (``phase_ctc_long``)."""
     from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
     from allophant_tpu_torch.parallel import dryrun, launch
@@ -3135,11 +3378,24 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
     same_rows = multi_gpu_joined([multi_gpu_requests(estimator, (rank, MULTI_RANKS)) for rank in range(MULTI_RANKS)], sizes)
     del estimator
     torch.cuda.empty_cache()
+    transformer_inputs, transformer_batches = multi_gpu_transformer_inputs()
+    transformer_metrics, transformer_reference = dryrun.config_step(
+        None, "cuda", transformer_inputs, transformer_batches, None, MULTI_DROPOUT_SEED
+    )
+    # The one-device step again: the card's own run-to-run distance (ATen's
+    # CUDA CTC backward accumulates with atomics), printed beside the ranks'
+    # on the same scales.
+    _metrics, transformer_again = dryrun.config_step(None, "cuda", transformer_inputs, transformer_batches, None, MULTI_DROPOUT_SEED)
+    transformer_floor = max(leaf_shares(transformer_again["grads"], transformer_reference["grads"], MULTI_SHARE).values())
+    del transformer_again
+    torch.cuda.empty_cache()
 
     workdir = root / "multi_gpu"
     workdir.mkdir()
     inputs, outputs = str(workdir / "inputs.pt"), str(workdir / "rank{rank}.pt")
-    torch.save({"f32_microbatches": microbatches}, inputs)
+    torch.save(
+        {"f32_microbatches": microbatches, "transformer": transformer_inputs, "transformer_microbatches": transformer_batches}, inputs
+    )
     spawned = time.perf_counter()
     launch.spawn(multi_gpu_rank, str(workdir), devices, (inputs, outputs))
     ranks = [torch.load(outputs.format(rank=rank), weights_only=False) for rank in range(MULTI_RANKS)]
@@ -3167,7 +3423,7 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
             flush=True,
         )
         check(mixed["steps"][-1]["mean_loss"] == ranks[0]["mixed"]["steps"][-1]["mean_loss"], "multi-GPU: the ranks' losses differ")
-        for label in ("f32_dp", "f32_tp", "tp_dropout", "serve"):
+        for label in ("f32_dp", "f32_tp", "tp_dropout", "transformer_tp", "serve"):
             for name, count in result[label]["launches"].items():
                 results[name] += count
 
@@ -3216,6 +3472,15 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
         flush=True,
     )
 
+    transformer_launches = check_transformer_tp(
+        ranks, transformer_inputs, transformer_batches, (transformer_metrics, transformer_reference), transformer_floor
+    )
+    transformer_layers = transformer_inputs["config"]["nn"]["acoustic_model"]["transformer"]["num_layers"]
+    # The check_fused_ctc forward runs K1; the step K5 and K4 a layer and microbatch.
+    expected = {"oneshot_attention": transformer_layers, "attention_dropout": transformer_layers * TRAIN_ACCUMULATION,
+                "attention_backward": transformer_layers * TRAIN_ACCUMULATION, "dropout_mask": 0, "frame_encoder": 0}
+    check(transformer_launches == expected, f"multi-GPU transformer tp: launches {transformer_launches}, expected {expected}")
+
     # The ranks against one device on the same rows (each rank's share run
     # alone), which they must equal; and against one device on the whole
     # batches, which differs by the float32 GEMMs' and convolutions' rounding
@@ -3246,8 +3511,9 @@ def phase_multi_gpu(results: dict, root: Path) -> None:
     phase_multi_gpu_cli(results, root, card)
     if torch.cuda.device_count() >= MULTI_RANKS:
         phase_multi_gpu_launch(root, card)
+        phase_multi_gpu_whole_run(root, card)
     else:
-        print("multi-GPU plain launch: not run (one card; it spawns a rank a card over NCCL)", flush=True)
+        print("multi-GPU plain launch and whole run: not run (one card; they spawn a rank a card over NCCL)", flush=True)
     print(f"multi-GPU: {time.perf_counter() - started:.1f} s", flush=True)
 
 
@@ -3485,6 +3751,32 @@ def train_from_store(label: str, root: Path, arguments: list) -> tuple:
     return report, [line for line in lines if re.match(r"epoch \d+ step \d+:", line)], seconds
 
 
+def store_features_mismatched(corpus: Path, config: dict, stored: dict) -> list:
+    """The (split, language, utterance) whose stored features (``stored``:
+    split -> the store's features, in the corpus's order of languages and
+    utterances) are not bit-equal to the feature function of ``config``
+    applied to the clip as the corpus reader gives it to the training loader."""
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.data import corpus_loading
+    from allophant_tpu_torch.data.preprocessing import FeatureFunction
+
+    parsed = Config.load(config)
+    splits = corpus_loading.load_corpus(
+        str(corpus), "common-voice", parsed.preprocessing.resample, only_primary_script=parsed.data.only_primary_script
+    )
+    feature_function = FeatureFunction.from_config(parsed, splits.audio_info().sample_rate or parsed.preprocessing.resample)
+    mismatched = []
+    for split_name, split in zip(("train", "dev", "test"), splits):
+        features = iter(stored[split_name].features)
+        for language in split.languages:
+            for index in split.monolingual_index_range(language):
+                audio, _rate = split.audio(index)
+                computed = feature_function(audio if audio.ndim > 1 else audio[None, :])
+                if not np.array_equal(computed.reshape(computed.shape[0], -1), next(features)):
+                    mismatched.append((split_name, language, int(index)))
+    return mismatched
+
+
 def phase_data_cli(results: dict, root: Path) -> None:
     """The port's ``allophant-data`` on the train CLI phase's Common Voice
     corpus, then ``train -f`` from its stores on the card:
@@ -3495,8 +3787,11 @@ def phase_data_cli(results: dict, root: Path) -> None:
        dropout 0.1) for one epoch: K5 and K4 once a layer and microbatch, K1
        in validation, twins forbidden;
     3. a float32 2-layer transformer ``train -f`` against the same run on
-       features computed on the fly: the saved parameters bit-equal (the
-       features are the same float32 values);
+       features computed on the fly, twice: the store's features bit-equal to
+       the feature function of every clip as the loader reads it; the first
+       step's loss bit-equal across the three runs, every step's loss and
+       gradient norm within the float32 metric limits; the runs' parameter
+       distances printed;
     4. the full-width flagship ``train -f`` from a raw-sample (16 kHz)
        ``preprocess`` store for one epoch of 2 steps: K2 once and K5 and K4
        24 times a microbatch.
@@ -3561,11 +3856,12 @@ def phase_data_cli(results: dict, root: Path) -> None:
     small = json.loads(json.dumps(config))
     small["nn"]["mixed_precision"] = False
     small["nn"]["acoustic_model"]["transformer"]["num_layers"] = 2
-    walls, parameters = {}, {}
+    walls, parameters, steps = {}, {}, {}
     runs = (("store", ["-f", str(stores["features"])]), ("on the fly", []), ("on the fly again", []))
     for label, extra in runs:
         save = f"float32_{label.replace(' ', '_')}"
         report, _lines, walls[label] = train_from_store(save, workdir, arguments(small, save, *extra))
+        steps[label] = report["steps"]
         for name, count in report["launches"].items():
             results[name] += count
         flat = tree_leaves(load_checkpoint(str(workdir / save / "epoch-1.ckpt")).variables["params"])
@@ -3578,19 +3874,44 @@ def phase_data_cli(results: dict, root: Path) -> None:
                      for key in differing), default=0.0)
         return differing, float(share)
 
+    def step_distances(first, second):
+        """(steps, the largest relative distance of a step's loss, of its gradient norm)."""
+        pairs = list(zip(steps[first], steps[second]))
+        check(len(steps[first]) == len(steps[second]) > 0 and all(a["step"] == b["step"] for a, b in pairs),
+              f"data CLI: float32 {first} ran steps {[a['step'] for a in steps[first]]}, {second} {[b['step'] for b in steps[second]]}")
+        return len(pairs), *(max(abs(a[key] - b[key]) / abs(b[key]) for a, b in pairs) for key in ("loss", "gradient_norm"))
+
     check(parameters["store"].keys() == parameters["on the fly"].keys(), "data CLI: the float32 runs saved other leaves")
     differing, share = apart("store", "on the fly")
     floor_differing, floor_share = apart("on the fly again", "on the fly")
-    # Bit-equal is expected: the batches hold the same float32 features. The
-    # card's own run-to-run floor (the same run again) bounds what may part them.
-    check(share <= max(floor_share, 0.0) or not differing,
-          f"data CLI: float32 train -f parts from on-the-fly features in {len(differing)} leaves (share {share:.3e}),"
-          f" beyond the run-to-run floor ({len(floor_differing)} leaves, share {floor_share:.3e})")
+    # The batches of the runs hold the same float32 features: the store's are
+    # the feature function of each clip as the on-the-fly loader reads it, bit
+    # for bit. So the first step, before any update, sees the same weights and
+    # the same batches in the same order, padding and labels, and the card's
+    # float32 forward is deterministic: its loss is bit-equal. From the first
+    # update on, ATen's CUDA CTC backward (it accumulates with atomics) parts
+    # the runs' weights by a few 1e-7 of a leaf, so later steps' losses and
+    # every step's gradient norm are held to the float32 metric limits, which a
+    # batch read in another order, padded or labelled otherwise, breaks by
+    # orders of magnitude. The parameters after the epoch are printed.
+    mismatched = store_features_mismatched(corpus, config, ragged)
+    check(not mismatched, f"data CLI: the store's features differ from those computed on the fly for {mismatched}")
+    first_losses = {label: steps[label][0]["loss"] if steps[label] else None for label, _extra in runs}
+    count, loss_distance, norm_distance = step_distances("store", "on the fly")
+    _count, floor_loss, floor_norm = step_distances("on the fly again", "on the fly")
+    check(len(set(first_losses.values())) == 1, f"data CLI: float32 first-step losses differ: {first_losses}")
+    for label, loss, norm in (("train -f", loss_distance, norm_distance), ("the same on-the-fly run twice", floor_loss, floor_norm)):
+        check(loss <= MULTI_METRIC_RTOL and norm <= MULTI_NORM_RTOL,
+              f"data CLI: float32 {label}: step losses {loss:.3e} and gradient norms {norm:.3e} apart (limits {MULTI_METRIC_RTOL},"
+              f" {MULTI_NORM_RTOL})")
     print(
         f"data CLI: float32 2-layer transformer, train -f {walls['store']:.1f} s, on the fly {walls['on the fly']:.1f} s and"
-        f" {walls['on the fly again']:.1f} s: train -f against on the fly: {len(differing)} of {len(parameters['store'])} saved"
-        f" leaves not bit-equal (largest share {share:.3e}); the same on-the-fly run twice: {len(floor_differing)} leaves"
-        f" (largest share {floor_share:.3e})",
+        f" {walls['on the fly again']:.1f} s; the store's features bit-equal to the feature function of every clip; first-step"
+        f" loss {first_losses['store']!r} in all three runs; train -f against on the fly over {count} steps: losses"
+        f" {loss_distance:.3e} and gradient norms {norm_distance:.3e} apart at most (limits {MULTI_METRIC_RTOL}, {MULTI_NORM_RTOL}),"
+        f" the same on-the-fly run twice {floor_loss:.3e} and {floor_norm:.3e}; parameters after the epoch: {len(differing)} of"
+        f" {len(parameters['store'])} saved leaves not bit-equal (largest share {share:.3e}), the same run twice"
+        f" {len(floor_differing)} (largest share {floor_share:.3e})",
         flush=True,
     )
 
@@ -3606,6 +3927,221 @@ def phase_data_cli(results: dict, root: Path) -> None:
     for name, count in launches.items():
         results[name] += count
     print(f"data CLI: train -f (full-width flagship, raw-sample store) {wall:.1f} s, {steps} steps; statistics {lines}; launches {launches}", flush=True)
+
+
+# Phase 21: the decode modes exported, and the serving requests' first batch
+# padded to the live path's length bucket of its 10 s rows (163,840 samples),
+# so that the artifact and the live call run the same shapes.
+EXPORT_DECODES = ("greedy", "beam4")
+EXPORT_BEAM_WIDTH, EXPORT_N_BEST, EXPORT_REPEATS = 4, 2, 5
+ARTIFACT_CHILD_FLAG = "--serve-artifact-child"
+ARTIFACT_HEAD = "phoneme"
+
+
+def export_batch():
+    """The first serving request's batch, its audio zero-padded to the
+    bucket that ``predict_decoded`` pads it to."""
+    from allophant_tpu_torch.data.batch import Batch
+    from allophant_tpu_torch.training.estimator import _bucket_length
+
+    batch = serving_requests()[0][1]["batch"]
+    audio = np.asarray(batch.audio_features, dtype=np.float32)
+    padded = np.zeros((audio.shape[0], _bucket_length(audio.shape[1])), dtype=np.float32)
+    padded[:, : audio.shape[1]] = audio
+    return Batch(padded, np.asarray(batch.lengths, dtype=np.int32), np.asarray(batch.language_ids, dtype=np.int32))
+
+
+def wall_ms(call, repeats: int = EXPORT_REPEATS) -> float:
+    """Host milliseconds of one ``call`` ended by a device sync, the mean of
+    ``repeats`` after a warm-up call."""
+    call()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(repeats):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - started) * 1e3 / repeats
+
+
+def serve_artifact_child(arguments: list) -> int:
+    """The child of the export phase: ``load_transcriber`` of a saved artifact
+    in a fresh process that imports the serving loader and the kernels' ops
+    (no model, training or data module), then the batch of an ``.npz`` file
+    through it with the twins forbidden: one warm-up call, one call with the
+    launch counters read around it (its outputs saved as numpy to the output
+    path), and EXPORT_REPEATS timed calls. Prints one JSON line."""
+    sys.path.insert(0, str(HERE))
+    path, inputs_path, output_path = arguments
+    started = time.perf_counter()
+    from allophant_tpu_torch.serving import load_transcriber
+
+    call = load_transcriber(path)
+    load_seconds = time.perf_counter() - started
+    from allophant_tpu_torch.ops.beam_kernel import beam_search_cuda
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+
+    counters = {"oneshot_attention": oneshot_attention, "frame_encoder": fused_frame_conv, "beam_search": beam_search_cuda}
+    with np.load(inputs_path) as arrays:
+        inputs = (arrays["audio"], arrays["lengths"], arrays["language_ids"])
+    with TwinsForbidden():
+        started = time.perf_counter()
+        call(*inputs)
+        torch.cuda.synchronize()
+        first_seconds = time.perf_counter() - started
+        for counter in counters.values():
+            counter.launches = 0
+        outputs = call(*inputs)
+        torch.cuda.synchronize()
+        launches = {name: counter.launches for name, counter in counters.items()}
+        request_ms = wall_ms(lambda: call(*inputs))
+    torch.save(torch.utils._pytree.tree_map(lambda tensor: tensor.cpu().numpy(), outputs), output_path)
+    prefixes = tuple(f"allophant_tpu_torch.{package}" for package in ("models", "training", "data"))
+    report = {
+        "load_s": load_seconds, "first_call_s": first_seconds, "request_ms": request_ms, "launches": launches,
+        "loaded": sorted(name for name in sys.modules if name.startswith(prefixes)),
+    }
+    print("serve-artifact-child " + json.dumps(report), flush=True)
+    return 0
+
+
+def n_best(collected: np.ndarray, scores: np.ndarray):
+    """Per row, the EXPORT_N_BEST best (tokens, score) of [T, B, K] tokens
+    (-1 = none) and [B, K] scores."""
+    rows = []
+    for row in range(collected.shape[1]):
+        order = np.argsort(-scores[row], kind="stable")[:EXPORT_N_BEST]
+        rows.append([(collected[:, row, beam][collected[:, row, beam] >= 0], float(scores[row, beam])) for beam in order])
+    return rows
+
+
+def greedy_cells_differing(decoded: dict, grid: np.ndarray, heads: tuple) -> int:
+    """Cells of the artifact's per-head (tokens, counts) that differ from the
+    live uint16 grid [H, B, T'+1] (column 0 the count, then the tokens)."""
+    differing = 0
+    for index, name in enumerate(heads):
+        if name not in decoded:
+            continue
+        tokens, counts = decoded[name]
+        live_counts = grid[index, :, 0]
+        differing += int((counts != live_counts).sum())
+        for row, count in enumerate(np.minimum(counts, live_counts)):
+            differing += int((tokens[row, :count] != grid[index, row, 1 : 1 + count]).sum())
+    return differing
+
+
+def phase_export(results: dict, root: Path) -> None:
+    """``allophant export`` of the full-width "mixed" flagship: for greedy and
+    beam4, ``serving.export_transcriber`` at 8 x 163,840 samples (the first
+    serving request's batch in its live bucket), ``save_transcriber``, then
+    the artifact loaded in a fresh process (``ARTIFACT_CHILD_FLAG``) that
+    imports no model code and runs the batch with the twins forbidden: K1
+    once a layer, K2 once and K3 once a beam call. The greedy tokens and
+    counts must equal the live ``predict_decoded`` grid of the batch cell for
+    cell; the beam triple, backtraced on the host, the live
+    ``predict_beam_decoded`` n-best of the phoneme head. Export, save and
+    load seconds, the artifact's size and its request wall time beside the
+    live call's; and the custom op's cost: K1 through its op against the
+    kernel's launch called directly."""
+    from allophant_tpu_torch import serving
+    from allophant_tpu_torch.ops.decode import backtrace_beams
+    from allophant_tpu_torch.ops.oneshot_attention import launch_oneshot_attention, oneshot_attention
+
+    card = phase_card()
+    estimator = build_serving_flagship()
+    layers = estimator.model.architecture.num_hidden_layers
+    batch = export_batch()
+    rows, samples = batch.audio_features.shape
+    heads = tuple(sorted(estimator.predict(batch, time_major=False).outputs))
+    inputs_path = root / "export_inputs.npz"
+    np.savez(inputs_path, audio=batch.audio_features, lengths=batch.lengths, language_ids=batch.language_ids)
+
+    grid, live_lengths = estimator.predict_decoded(batch, heads=heads)
+    grid, live_lengths = grid.to(torch.int32).cpu().numpy(), live_lengths.cpu().numpy()
+    live_collected, live_scores, _ = estimator.predict_beam_decoded(batch, heads=(ARTIFACT_HEAD,), beam_width=EXPORT_BEAM_WIDTH)
+    live_collected, live_scores = live_collected[0].to(torch.int64).cpu().numpy(), live_scores[0].cpu().numpy()
+    live_ms = {
+        "greedy": wall_ms(lambda: estimator.predict_decoded(batch, heads=heads)),
+        "beam4": wall_ms(lambda: estimator.predict_beam_decoded(batch, heads=(ARTIFACT_HEAD,), beam_width=EXPORT_BEAM_WIDTH)),
+    }
+    live_calls = {"greedy": "predict_decoded, 38 heads", "beam4": f"predict_beam_decoded, the {ARTIFACT_HEAD} head"}
+
+    for decode in EXPORT_DECODES:
+        started = time.perf_counter()
+        exported = serving.export_transcriber(estimator, rows, samples, decode, device="cuda")
+        export_seconds = time.perf_counter() - started
+        ops = sorted({str(node.target) for node in exported.program.graph.nodes if str(node.target).startswith("allophant_torch.")})
+        path = root / f"transcriber_{decode}.pt2"
+        started = time.perf_counter()
+        serving.save_transcriber(exported, str(path))
+        save_seconds = time.perf_counter() - started
+        del exported
+        torch.cuda.empty_cache()
+        output_path = root / f"artifact_{decode}.pt"
+        child = subprocess.run(
+            [sys.executable, str(HERE / "chip_smoke.py"), ARTIFACT_CHILD_FLAG, str(path), str(inputs_path), str(output_path)],
+            stdin=subprocess.DEVNULL, capture_output=True, text=True, cwd=str(HERE), timeout=600,
+        )
+        if child.returncode != 0:
+            print(child.stdout[-3000:], child.stderr[-6000:], flush=True)
+        check(child.returncode == 0, f"export {decode}: the artifact's child exited {child.returncode}")
+        (report,) = [json.loads(line.split(" ", 1)[1]) for line in child.stdout.splitlines() if line.startswith("serve-artifact-child ")]
+        check(report["loaded"] == [], f"export {decode}: the loader imported {report['loaded']}")
+        beam = decode.startswith("beam")
+        expected = {"oneshot_attention": layers, "frame_encoder": 1, "beam_search": int(beam)}
+        check(report["launches"] == expected, f"export {decode}: launches {report['launches']}, expected {expected}")
+        for name, count in report["launches"].items():
+            results[name] += count
+        outputs = torch.load(output_path, weights_only=False)
+        decoded, lengths = outputs[0], outputs[-1]
+        check(np.array_equal(lengths, live_lengths), f"export {decode}: frame lengths {lengths} vs live {live_lengths}")
+        differing = greedy_cells_differing(decoded, grid, heads)
+        beam_text = ""
+        if beam:
+            check(ARTIFACT_HEAD not in decoded and len(decoded) == len(heads) - 1, f"export {decode}: heads {sorted(decoded)}")
+            collected, scores = backtrace_beams(*outputs[1], lengths)
+            beam_cells = int((collected != live_collected).sum())
+            score_error = float(np.abs(scores.astype(np.float64) - live_scores).max())
+            same_n_best = all(
+                len(got) == len(want) and all(np.array_equal(a[0], b[0]) and abs(a[1] - b[1]) <= 1e-4 for a, b in zip(got, want))
+                for got, want in zip(n_best(collected, scores), n_best(live_collected, live_scores))
+            )
+            beam_text = (
+                f"; beam {EXPORT_BEAM_WIDTH} on the {ARTIFACT_HEAD} head backtraced on the host: {beam_cells} token cells differ from"
+                f" the live search, scores {score_error:.3e} off, {EXPORT_N_BEST}-best {'equal' if same_n_best else 'DIFFERENT'}"
+            )
+        else:
+            check(set(decoded) == set(heads), f"export {decode}: heads {sorted(decoded)}")
+        print(
+            f"export {decode}: {rows} x {samples} samples, ops {ops}; export {export_seconds:.2f} s, save {save_seconds:.2f} s,"
+            f" {path.stat().st_size / 2**20:.1f} MiB; fresh process: load {report['load_s']:.2f} s, first call"
+            f" {report['first_call_s']:.2f} s, request {report['request_ms']:.1f} ms (live {live_calls[decode]}:"
+            f" {live_ms[decode]:.1f} ms); launches {report['launches']}, twins forbidden, no model module loaded;"
+            f" greedy cells differing from the live grid {differing}{beam_text}; {card}",
+            flush=True,
+        )
+        check(differing == 0, f"export {decode}: {differing} greedy cells differ from the live predict_decoded grid")
+        if beam:
+            check(beam_cells == 0 and same_n_best, f"export {decode}: the beam n-best differs from the live search")
+        path.unlink()
+
+    # The custom op's cost: K1 at the serving shape through its op (the
+    # dispatcher, the CUDA implementation) in inference mode, as serving and
+    # the artifact call it, and under no_grad (autograd's dispatch on top),
+    # against the launch function called directly.
+    q, k, v, bias = attention_inputs([511] * 8, 511, 16, 64, torch.bfloat16, fused_qkv=True)[:4]
+    with torch.inference_mode():
+        inference = median_ms(lambda: oneshot_attention(q, k, v, bias, 0.125, 16), 50)
+    with torch.no_grad():
+        no_grad = median_ms(lambda: oneshot_attention(q, k, v, bias, 0.125, 16), 50)
+    direct = median_ms(lambda: launch_oneshot_attention(q, k, v, bias, 0.125, 16), 50)
+    print(
+        f"export: K1 [8, 511, 1024] bf16 a call through its custom op {inference:.4f} ms in inference mode, {no_grad:.4f} ms"
+        f" under no_grad; its launch called directly {direct:.4f} ms (CUDA events, back-to-back calls); {card}",
+        flush=True,
+    )
+    del estimator
+    torch.cuda.empty_cache()
 
 
 MULTI_GPU_FLAG = "--multi-gpu"
@@ -3645,6 +4181,8 @@ def timed(label: str, function, *arguments):
 def main() -> int:
     if sys.argv[1:2] == [CHILD_FLAG]:
         return train_cli_child(sys.argv[2:])
+    if sys.argv[1:2] == [ARTIFACT_CHILD_FLAG]:
+        return serve_artifact_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3727,6 +4265,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("pretrained", phase_pretrained, launches, root)
         timed("data CLI", phase_data_cli, launches, root)
+        torch.cuda.empty_cache()
+        timed("export", phase_export, launches, root)
     for entry in entries:
         entry["launches"] = launches[entry["name"]]
     print(f"total: {time.perf_counter() - overall:.1f} s", flush=True)

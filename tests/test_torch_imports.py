@@ -1,7 +1,7 @@
 """Import guard of the PyTorch port: no module of allophant_tpu_torch (the
 C++ build helper ``native/build.py`` included), and not chip_smoke.py,
-imports JAX, flax, pandas, msgpack, regex, transformers, safetensors or the
-JAX package — the machine with the GPU may have none of them."""
+imports JAX, flax, orbax, pandas, msgpack, regex, transformers, safetensors
+or the JAX package — the machine with the GPU may have none of them."""
 
 import ast
 import subprocess
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pandas", "msgpack", "regex", "allophant_tpu", "transformers", "safetensors")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "msgpack", "regex", "allophant_tpu", "transformers", "safetensors")
 SOURCES = sorted((ROOT / "allophant_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,6 +42,14 @@ def test_the_parallel_package_is_guarded():
     )
     result = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr
+
+
+def test_the_serving_modules_are_guarded():
+    """The serving export, the kernels' custom ops and the strided conv are
+    among the guarded sources."""
+    guarded = {str(path.relative_to(ROOT)) for path in SOURCES}
+    for name in ("serving.py", "kernels/library.py", "ops/strided_conv.py"):
+        assert f"allophant_tpu_torch/{name}" in guarded, name
 
 
 def test_importing_every_module_loads_no_forbidden_package():

@@ -46,7 +46,7 @@ from allophant_tpu.training import train_step as jax_train_step
 from allophant_tpu_torch.models.layers import DropoutRng
 from allophant_tpu_torch.parallel import dryrun, mesh, sharding
 from allophant_tpu_torch.weights import jax_params_from_state, state_dict_from_jax
-from torch_parity import numpy_tree, shared_across_workers
+from torch_parity import mini_transformer_inputs, numpy_tree, shared_across_workers
 
 ROOT = Path(__file__).resolve().parent.parent
 WORLD = 8
@@ -208,31 +208,63 @@ def _jax_leaf_names(port_name: str):
     return [(*path[:-1], name, leaf) for name in parents]
 
 
+def _port_model(kind: str):
+    """The dry run's tiny flagship (a wav2vec2 encoder, the flagship's head)
+    or the mini transformer with an attention classifier on its head."""
+    if kind == "flagship":
+        return dryrun.tiny_flagship("cpu")[1]
+    return dryrun.config_model("cpu", None, mini_transformer_inputs())[1]
+
+
 def test_param_spec_matches_jax_on_the_port_names():
-    _config, model = dryrun.tiny_flagship("cpu")
-    sharded = 0
-    for name, parameter in model.named_parameters():
-        spec = sharding.param_spec(name)
-        for path in _jax_leaf_names(name):
-            expected = tuple(jax_param_spec(path))
-            expected += (None,) * (parameter.ndim - len(expected))
-            # JAX keeps a dense kernel [in, out], torch a weight [out, in].
-            if path[-1] == "kernel" and parameter.ndim == 2:
-                expected = expected[::-1]
-            assert spec.partition(parameter.ndim) == expected, (name, path, expected)
-        sharded += spec.sharded
-        assert spec.parts == (3 if name.endswith(("qkv_proj.weight", "qkv_proj.bias")) else 1) or not spec.sharded
-    # q/k/v weight and bias, out_proj weight, the FFN's three, in 2 layers.
-    assert sharded == 2 * 6
+    """On every parameter of the tiny flagship and of the mini transformer
+    with a head attention. Sharded leaves: a wav2vec2 layer's q/k/v weight
+    and bias, out_proj weight and the FFN's three, in 2 layers; a transformer
+    layer's the same with linear1 and linear2, and the head attention's input
+    projection, q, k and v (weight and bias) and out_proj weight."""
+    for kind, expected_sharded in (("flagship", 2 * 6), ("transformer", 2 * 6 + 9)):
+        sharded = 0
+        for name, parameter in _port_model(kind).named_parameters():
+            spec = sharding.param_spec(name)
+            for path in _jax_leaf_names(name):
+                expected = tuple(jax_param_spec(path))
+                expected += (None,) * (parameter.ndim - len(expected))
+                # JAX keeps a dense kernel [in, out], torch a weight [out, in].
+                if path[-1] == "kernel" and parameter.ndim == 2:
+                    expected = expected[::-1]
+                assert spec.partition(parameter.ndim) == expected, (name, path, expected)
+            sharded += spec.sharded
+            assert spec.parts == (3 if name.endswith(("qkv_proj.weight", "qkv_proj.bias")) else 1) or not spec.sharded
+        assert sharded == expected_sharded, kind
 
 
-def test_transformer_and_head_attention_stay_replicated():
-    """JAX also shards the transformer's FFN and the projection head's
-    attention; the port replicates them (tensor parallelism there is not
-    ported)."""
-    for name in ("acoustic_model.layers.0.linear1.weight", "acoustic_model.layers.0.qkv_proj.weight", "projection.attention.q_proj.weight"):
-        assert not sharding.param_spec(name).sharded
+def test_transformer_and_head_attention_shard_as_jax():
+    """The transformer's fused QKV, out_proj, linear1 and linear2 and the
+    projection head attention's input projection, q/k/v and out_proj shard
+    as JAX's rules shard them (column-parallel: torch dimension 0;
+    row-parallel: dimension 1, the weight only)."""
+    column, row = sharding.ParamSpec(0), sharding.ParamSpec(1)
+    expected = {
+        "acoustic_model.layers.0.qkv_proj.weight": sharding.ParamSpec(0, 3),
+        "acoustic_model.layers.0.qkv_proj.bias": sharding.ParamSpec(0, 3),
+        "acoustic_model.layers.0.out_proj.weight": row,
+        "acoustic_model.layers.0.out_proj.bias": sharding.ParamSpec(),
+        "acoustic_model.layers.0.linear1.weight": column,
+        "acoustic_model.layers.0.linear1.bias": column,
+        "acoustic_model.layers.0.linear2.weight": row,
+        "acoustic_model.layers.0.linear2.bias": sharding.ParamSpec(),
+        "projection.classifiers.phoneme.input_projection.weight": column,
+        "projection.classifiers.phoneme.input_projection.bias": column,
+        "projection.classifiers.phoneme.q_proj.weight": column,
+        "projection.classifiers.phoneme.v_proj.bias": column,
+        "projection.classifiers.phoneme.out_proj.weight": row,
+        "projection.classifiers.phoneme.layer_norm.weight": sharding.ParamSpec(),
+    }
+    for name, spec in expected.items():
+        assert sharding.param_spec(name) == spec, name
+    assert column.partition(2) == tuple(reversed(jax_param_spec(("layers_0", "linear1", "kernel"))))
     assert jax_param_spec(("layers_0", "linear1", "kernel")) == PartitionSpec(None, jax_mesh.MODEL_AXIS)
+    assert jax_param_spec(("phoneme", "input_projection", "bias")) == PartitionSpec(jax_mesh.MODEL_AXIS)
 
 
 @pytest.mark.parametrize("model_parallel", [2, 4])

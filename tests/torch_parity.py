@@ -59,6 +59,36 @@ def exact_frame_encoder_erf():
         jax.clear_caches()
 
 
+#: The mini transformer's filterbanks a frame (tests/test_torch_transformer.py).
+MINI_TRANSFORMER_FEATURES = 40
+
+
+def mini_transformer_inputs(dropout: float = 0.0) -> dict:
+    """``parallel.dryrun.config_model``'s inputs of the fixtures' mini
+    transformer (linear frontend, d_model 32, 2 heads of 16, FFN 64, 2
+    layers) on 40 filterbanks, float32, with an attention classifier of 2
+    heads (sinusoidal positions) on its composed phoneme head, and
+    ``dropout`` on every dropout site (the transformer's and the heads'
+    tap)."""
+    from allophant_tpu_torch.phonetics.features import LanguageInventories
+
+    from fixtures import mini_allophoible_csv, mini_config_dict
+
+    config = mini_config_dict(embedding_composition=True)
+    config["nn"]["mixed_precision"] = False
+    config["nn"]["acoustic_model"]["transformer"]["dropout_rate"] = dropout
+    config["nn"]["projection"]["acoustic_model_dropout"] = dropout
+    for entry in config["nn"]["projection"]["classes"]:
+        if entry["name"] == "phoneme":
+            entry["time_layer"] = {"type": "multi-head-attention", "num_heads": 2, "positional_embeddings": True}
+    config["preprocessing"] = {
+        "feature_type": "FILTERBANKS", "window": {"frame_duration": 25, "frame_stride": 10}, "resample": 16000,
+        "num_filters": MINI_TRANSFORMER_FEATURES,
+    }
+    inventories = LanguageInventories({0: ["a", "o", "n", "s"], 1: ["a", "s", "i", "t"]}, ["es", "it"])
+    return {"config": config, "table": mini_allophoible_csv(), "inventories": inventories, "feature_size": MINI_TRANSFORMER_FEATURES}
+
+
 def random_variables(init_fn, seed: int) -> dict:
     """A variable tree shaped like ``init_fn()``'s (traced with eval_shape, not
     run) filled from a numpy generator: kernels N(0, 1/fan_in), biases N(0, 0.1),
