@@ -113,6 +113,20 @@ def _prefer_interrupted_checkpoint(candidate: str, save_path: str) -> str:
     return interrupted if os.path.getmtime(interrupted) >= os.path.getmtime(candidate) else candidate
 
 
+def _restore_candidate(save_path: str) -> str:
+    """What ``train --restore`` resumes from: ``best.ckpt`` in a save
+    directory, else the file itself, or the preemption checkpoint when it is
+    newer. A save directory that is an Orbax checkpoint is itself the
+    checkpoint until a run has saved one of those two into it."""
+    from allophant_tpu_torch.training.checkpoint import is_orbax_directory
+
+    candidate = os.path.join(save_path, BEST_CHECKPOINT) if os.path.isdir(save_path) else save_path
+    candidate = _prefer_interrupted_checkpoint(candidate, save_path)
+    if not os.path.exists(candidate) and is_orbax_directory(save_path):
+        return save_path
+    return candidate
+
+
 def train(arguments: Namespace, args: Sequence[str]) -> None:
     """``train`` on one device, or data-parallel over several: in the process
     group of a ``torchrun`` environment, or over every visible GPU in one
@@ -187,11 +201,16 @@ def train_network(arguments: Namespace, mesh=None, device=None) -> None:
     # Raises now, before the corpus is read, when there is no card and no --cpu.
     device = resolve_device(_device(arguments) if device is None else device)
     first = mesh is None or mesh.index == 0
+    if arguments.save_path is not None and not arguments.save_all and checkpoint_module.is_orbax_directory(arguments.save_path):
+        # The best model would be saved as one file in place of the directory.
+        raise ValueError(
+            f"{arguments.save_path} is an Orbax checkpoint directory: train into it with --save-all, which writes "
+            f"{BEST_CHECKPOINT} and the epoch checkpoints beside it"
+        )
     restore_path = arguments.save_path if arguments.restore else None
     checkpoint = None
     if restore_path is not None:
-        candidate = os.path.join(restore_path, BEST_CHECKPOINT) if os.path.isdir(restore_path) else restore_path
-        candidate = _prefer_interrupted_checkpoint(candidate, restore_path)
+        candidate = _restore_candidate(restore_path)
         MAIN_LOGGER.info("Restoring from %s", candidate)
         checkpoint = checkpoint_module.load_checkpoint(candidate)
         if arguments.config is not None or arguments.config_json_data is not None:

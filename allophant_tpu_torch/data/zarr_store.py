@@ -12,7 +12,10 @@ on-disk format with numpy alone (no zarr, numcodecs or lz4 package):
 - the Blosc1 frame format (16-byte header, block starts, optional per-block
   typesize-split streams) with the LZ4 block codec, byte-shuffle and
   bit-shuffle filters;
-- numcodecs' ``VLenArray`` object codec (the ``array:float32`` ragged dtype).
+- numcodecs' ``VLenArray`` object codec (the ``array:float32`` ragged dtype);
+- N-dimensional arrays in a grid of chunks, compressed with zstd or not at
+  all, over any key-value source: the arrays of Orbax checkpoints
+  (``training/orbax_arrays.py``), read from an OCDBT store or a directory.
 
 Reading supports everything the reference writes (lz4 + bitshuffle features,
 lz4 + byteshuffle lengths, and uncompressed/memcpy frames). Writing emits
@@ -23,10 +26,12 @@ through the pure-Python decoder below otherwise, as in the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+from dataclasses import dataclass
 from os import path
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -437,8 +442,7 @@ def read_array(array_dir: str) -> np.ndarray | List[np.ndarray]:
     """Reads a 1-D zarr v2 array (plain dtype, or object dtype with the
     vlen-array filter -> list of numpy arrays)."""
     meta = _read_json(path.join(array_dir, ".zarray"))
-    if meta.get("zarr_format") != 2:
-        raise ValueError(f"unsupported zarr format {meta.get('zarr_format')}")
+    _check_zarr_format(meta)
     if len(meta["shape"]) != 1:
         raise ValueError("only 1-D arrays are used by the reference store")
     (size,) = meta["shape"]
@@ -484,6 +488,147 @@ def read_array(array_dir: str) -> np.ndarray | List[np.ndarray]:
             chunk = np.frombuffer(raw, dtype)
             result[start : start + count] = chunk[:count]
     return result_objects if vlen_dtype is not None else result
+
+
+def read_file_into(file_path: str, offset: int, buffer: np.ndarray) -> None:
+    """Reads ``buffer.nbytes`` bytes of ``file_path`` from ``offset`` into
+    the contiguous ``buffer``, without an intermediate copy."""
+    view = memoryview(buffer.reshape(-1).view(np.uint8))
+    with open(file_path, "rb", buffering=0) as file:
+        file.seek(offset)
+        done = 0
+        while done < len(view):
+            read = file.readinto(view[done:])
+            if not read:
+                raise ValueError(f"{file_path} ends before byte {offset + len(view)}")
+            done += read
+
+
+def _check_zarr_format(meta: dict) -> None:
+    if meta.get("zarr_format") != 2:
+        raise ValueError(f"unsupported zarr format {meta.get('zarr_format')}")
+
+
+# ---------------------------------------------------------------------------
+# N-dimensional arrays in a chunk grid (Orbax checkpoints)
+# ---------------------------------------------------------------------------
+
+#: The dtypes of ``.zarray`` an N-dimensional array may have, and the numpy
+#: dtype its chunk bytes hold (bfloat16 as its raw 16 bits).
+_STORED_DTYPES = {
+    "<f4": "<f4", "<f2": "<f2", "<f8": "<f8", "bfloat16": "<u2",
+    "|i1": "|i1", "<i2": "<i2", "<i4": "<i4", "<i8": "<i8",
+    "|u1": "|u1", "<u2": "<u2", "<u4": "<u4", "<u8": "<u8", "|b1": "|b1",
+}
+
+
+@dataclass(frozen=True)
+class ArrayMetadata:
+    """The ``.zarray`` of an N-dimensional array: C order, no filters, the
+    fill value null, and chunks zstd-compressed or not compressed."""
+
+    shape: Tuple[int, ...]
+    chunks: Tuple[int, ...]
+    dtype: str
+    compressor: Optional[str]
+    separator: str = "."
+
+    @property
+    def stored_dtype(self) -> np.dtype:
+        return np.dtype(_STORED_DTYPES[self.dtype])
+
+    def chunk_keys(self) -> List[Tuple[str, Tuple[int, ...]]]:
+        """(key, chunk index) of every chunk of the grid; a 0-d array has one,
+        at key ``0``."""
+        grid = [-(-size // chunk) if chunk else 0 for size, chunk in zip(self.shape, self.chunks)]
+        if not grid:
+            return [("0", ())]
+        return [(self.separator.join(map(str, index)), index) for index in itertools.product(*map(range, grid))]
+
+    def to_json(self) -> dict:
+        return {
+            "chunks": list(self.chunks),
+            "compressor": None if self.compressor is None else {"id": self.compressor, "level": 1},
+            "dimension_separator": self.separator,
+            "dtype": self.dtype,
+            "fill_value": None,
+            "filters": None,
+            "order": "C",
+            "shape": list(self.shape),
+            "zarr_format": 2,
+        }
+
+
+def zarr_dtype(dtype: np.dtype, name: str = "array") -> str:
+    """The ``.zarray`` spelling of a numpy dtype that N-dimensional arrays
+    hold (numpy's own ``dtype.str``)."""
+    spelling = np.dtype(dtype).str
+    if spelling not in _STORED_DTYPES:
+        raise ValueError(f"{name}: unsupported dtype {dtype}")
+    return spelling
+
+
+def parse_array_metadata(meta: dict, name: str = "array") -> ArrayMetadata:
+    """Checks a ``.zarray`` against what ``read_chunked_array`` reads."""
+    _check_zarr_format(meta)
+    dtype = meta.get("dtype")
+    if dtype not in _STORED_DTYPES:
+        raise ValueError(f"{name}: unsupported zarr dtype {dtype!r}")
+    if meta.get("order", "C") != "C":
+        raise ValueError(f"{name}: only C-order chunks are supported, not {meta.get('order')!r}")
+    if meta.get("filters"):
+        raise ValueError(f"{name}: zarr filters are not supported ({meta['filters']})")
+    if meta.get("fill_value") is not None:
+        raise ValueError(f"{name}: only a null fill_value is supported, not {meta['fill_value']!r}")
+    separator = meta.get("dimension_separator", ".")
+    if separator not in (".", "/"):
+        raise ValueError(f"{name}: unsupported dimension_separator {separator!r}")
+    compressor = meta.get("compressor")
+    if compressor is not None and compressor.get("id") != "zstd":
+        raise ValueError(f"{name}: unsupported compressor {compressor.get('id')!r} (zstd or none)")
+    shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
+    if len(shape) != len(chunks):
+        raise ValueError(f"{name}: shape {shape} and chunks {chunks} differ in rank")
+    return ArrayMetadata(shape, chunks, dtype, None if compressor is None else "zstd", separator)
+
+
+def read_chunked_array(
+    metadata: ArrayMetadata,
+    fetch: Callable[[str], Optional[bytes]],
+    read_into: Callable[[str, np.ndarray], bool],
+    name: str = "array",
+) -> np.ndarray:
+    """Assembles an array from its chunks. ``fetch(key)`` returns a
+    compressed chunk's bytes, or None when it is missing;
+    ``read_into(key, buffer)`` reads an uncompressed chunk straight into a
+    buffer of its size and returns False when it is missing. A missing chunk
+    raises. Edge chunks are stored padded to the full chunk shape. bfloat16
+    comes back as float32, which holds every bfloat16 exactly."""
+    stored = metadata.stored_dtype
+    result = np.empty(metadata.shape, stored)
+    whole = metadata.chunks == metadata.shape
+    for key, index in metadata.chunk_keys():
+        target = result if whole else np.empty(metadata.chunks, stored)
+        if metadata.compressor is None:
+            if not read_into(key, target):
+                raise KeyError(f"{name}: chunk {key!r} is missing")
+        else:
+            raw = fetch(key)
+            if raw is None:
+                raise KeyError(f"{name}: chunk {key!r} is missing")
+            from allophant_tpu_torch.native import zstd
+
+            written = zstd.decompress_into(raw, target)
+            if written != target.nbytes:
+                raise ValueError(f"{name}: chunk {key!r} holds {written} bytes, expected {target.nbytes}")
+        if not whole:
+            region = tuple(
+                slice(i * c, min((i + 1) * c, size)) for i, c, size in zip(index, metadata.chunks, metadata.shape)
+            )
+            result[region] = target[tuple(slice(0, r.stop - r.start) for r in region)]
+    if metadata.dtype == "bfloat16":
+        return (result.astype(np.uint32) << 16).view(np.float32)
+    return result
 
 
 class ZarrDirectoryWriter:

@@ -17,7 +17,15 @@ marshmallow-dumped ``Checkpoint`` (config, attribute graph, indexer state,
 ``model_state`` under the reference's tensor names, ...);
 ``load_reference_checkpoint`` reads it with ``weights_only=True`` and
 ``convert_reference_model_state`` maps its tensor names onto the JAX
-package's parameter tree. Orbax directories are not ported."""
+package's parameter tree.
+
+An Orbax directory is what the JAX package's ``save_orbax`` writes: the
+metadata as ``allophant_meta.json``, the writer's optimizer bytes as
+``optimizer_state.bin``, and the variables under ``variables/`` as
+``orbax.checkpoint.StandardCheckpointer`` lays them out (zarr arrays in
+tensorstore's OCDBT store). ``save_orbax`` and ``load_orbax`` read and write
+it with the port's own code (``training/orbax_arrays.py``,
+``training/ocdbt.py`` and the zstd decoder in ``native/``)."""
 
 from __future__ import annotations
 
@@ -175,18 +183,13 @@ def load_reference_checkpoint(file_path: str) -> Checkpoint:
     )
 
 
-#: The file of an orbax checkpoint directory that marks it as one.
-ORBAX_METADATA_FILE = "allophant_meta.json"
-
-
 def load_checkpoint(file_path: str) -> Checkpoint:
-    """Dispatches between the native msgpack format and reference torch
-    checkpoints. Accepts a local path or a HuggingFace model id, whose
-    ``allophant.pt`` is looked up in the local HuggingFace cache only."""
-    if os.path.isdir(file_path) and os.path.isfile(os.path.join(file_path, ORBAX_METADATA_FILE)):
-        raise NotImplementedError(
-            f"{file_path} is an orbax checkpoint directory; reading orbax checkpoints is not ported (ROADMAP Queue 1, item 3)"
-        )
+    """Dispatches between the native msgpack format, Orbax directories and
+    reference torch checkpoints. Accepts a local path or a HuggingFace model
+    id, whose ``allophant.pt`` is looked up in the local HuggingFace cache
+    only."""
+    if is_orbax_directory(file_path):
+        return load_orbax(file_path)
     if not os.path.isfile(file_path):
         resolved = _resolve_hub_file(file_path)
         if resolved is None:
@@ -195,6 +198,85 @@ def load_checkpoint(file_path: str) -> Checkpoint:
     if _is_native(file_path):
         return load_native(file_path)
     return load_reference_checkpoint(file_path)
+
+
+# ---------------------------------------------------------------------------
+# Orbax directories
+# ---------------------------------------------------------------------------
+
+#: The file of an Orbax checkpoint directory that marks it as one.
+ORBAX_METADATA_FILE = "allophant_meta.json"
+_ORBAX_OPTIMIZER_FILE = "optimizer_state.bin"
+
+
+def is_orbax_directory(file_path: str) -> bool:
+    return os.path.isdir(file_path) and os.path.isfile(os.path.join(file_path, ORBAX_METADATA_FILE))
+
+
+def save_orbax(checkpoint: Checkpoint, directory: str) -> None:
+    """Writes an Orbax checkpoint directory that the JAX package's
+    ``load_orbax`` reads: the metadata, the optimizer bytes and the variables
+    (``orbax_arrays.write_tree``; an existing ``variables/`` is replaced).
+
+    Under several ranks of a ``torch.distributed`` group every rank calls
+    it with the whole variables: rank 0 writes and the others wait for it at
+    a barrier, as with the native file."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from allophant_tpu_torch.training.orbax_arrays import write_tree
+
+    distributed = dist.is_available() and dist.is_initialized()
+    if not distributed or dist.get_rank() == 0:
+        directory = os.path.abspath(directory)
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, ORBAX_METADATA_FILE), "w", encoding="utf-8") as file:
+            json.dump(checkpoint_metadata(checkpoint), file)
+        optimizer_path = os.path.join(directory, _ORBAX_OPTIMIZER_FILE)
+        if checkpoint.optimizer_state is not None:
+            with open(optimizer_path, "wb") as file:
+                file.write(checkpoint.optimizer_state)
+        elif os.path.exists(optimizer_path):
+            os.unlink(optimizer_path)
+        variables_path = os.path.join(directory, "variables")
+        if os.path.exists(variables_path):
+            shutil.rmtree(variables_path)
+        write_tree(variables_path, checkpoint.variables)
+    if distributed:
+        dist.barrier()
+
+
+def load_orbax(directory: str) -> Checkpoint:
+    """Reads an Orbax checkpoint directory, whichever package wrote it; the
+    variables come back as nested dicts of numpy arrays
+    (``orbax_arrays.read_tree``)."""
+    from allophant_tpu_torch.training.orbax_arrays import read_tree
+
+    directory = os.path.abspath(directory)
+    with open(os.path.join(directory, ORBAX_METADATA_FILE), "r", encoding="utf-8") as file:
+        metadata = json.load(file)
+    variables = read_tree(os.path.join(directory, "variables"))
+    optimizer_state = None
+    optimizer_path = os.path.join(directory, _ORBAX_OPTIMIZER_FILE)
+    if os.path.isfile(optimizer_path):
+        with open(optimizer_path, "rb") as file:
+            optimizer_state = file.read()
+    indexer_state = metadata.get("phonetic_indexer_state")
+    return Checkpoint(
+        config=Config.load(metadata["config"]),
+        feature_size=int(metadata["feature_size"]),
+        sample_rate=int(metadata["sample_rate"]),
+        attribute_graph=AttributeGraph.from_dict(metadata["attribute_graph"]),
+        epoch=EpochPosition.from_dict(metadata.get("epoch")),
+        phonetic_indexer_state=None if indexer_state is None else PhoneticIndexerState.from_dict(indexer_state),
+        variables=variables,
+        optimizer_state=optimizer_state,
+        history=metadata.get("history", []),
+        dataset_meta_data=metadata.get("dataset_meta_data", []),
+        additional=metadata.get("additional"),
+        version=metadata.get("version", "unknown"),
+    )
 
 
 def _resolve_hub_file(model_id: str, file_name: str = "allophant.pt") -> Optional[str]:

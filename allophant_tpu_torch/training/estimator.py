@@ -299,8 +299,8 @@ class Estimator:
         remat: bool = False,
         mesh=None,
     ) -> Tuple["Estimator", PhoneticAttributeIndexer]:
-        """Restores from a native or reference checkpoint (a path, a hub model
-        id in the local cache, or a parsed ``Checkpoint``) onto ``device``
+        """Restores from a native, Orbax or reference checkpoint (a path, a
+        hub model id in the local cache, or a parsed ``Checkpoint``) onto ``device``
         (CUDA unless the caller asks for another; raises without one); returns
         the estimator, with float32 master parameters, and the indexer rebuilt
         from the checkpoint's state.

@@ -157,7 +157,22 @@ Phases, each printing its own lines; any failure exits non-zero:
      ``predict_decoded``, the beam n-best to ``predict_beam_decoded``;
      export, save and load seconds, artifact size, request wall time beside
      the live call's; K1 through its custom op against its launch called
-     directly.
+     directly;
+ 22. orbax (run after phase 12, on its files): the full-width "mixed"
+     flagship written by the port's ``save_orbax`` (OCDBT and zarr, about
+     1.2 GiB), read back by ``load_checkpoint`` with every leaf bit-equal,
+     and ``Estimator.restore`` of the directory on the card: greedy grids
+     and beam-4 n-best of the three serving requests integer-equal to the
+     in-memory estimator's (K1 24 times and K2 once a request, K3 once a
+     class count of a beam request, twins forbidden); the committed
+     fixture tests/data/orbax_mini/ (written by tensorstore: zstd, several
+     chunks a kernel) decoded by the port's zstd decoder bit-equal to its
+     .npz (MB/s printed), and tests/data/zstd_timing/'s frame of 32 MiB
+     timed (MB/s on this host), the fixture restored on the card and one
+     request through K1
+     equal to the CPU's grid; ``predict`` with an Orbax copy of phase 12's
+     checkpoint, its JSONL equal to phase 12's greedy output. Save and load
+     seconds and sizes beside the card's name and power limit.
 Each phase prints its seconds. Then one JSON line describing the kernels, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without that line when no CUDA
 device is present or the port's package is not beside this script."""
@@ -167,6 +182,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -2160,6 +2176,218 @@ def phase_predict(results: dict, root: Path, master_params: dict) -> None:
             f" ({total['error_statistics']['phone']})",
             flush=True,
         )
+
+
+ORBAX_FIXTURE = HERE / "tests" / "data" / "orbax_mini"
+ZSTD_TIMING = HERE / "tests" / "data" / "zstd_timing"
+
+
+def serving_outputs(estimator, results: dict, label: str) -> list:
+    """Greedy grid and beam-4 n-best of each serving request from
+    ``estimator``, with the plain twins forbidden and the launches of each
+    call counted into ``results`` and checked."""
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+
+    counters = {
+        "oneshot_attention": oneshot_attention, "frame_encoder": fused_frame_conv,
+        "beam_search": beam_search_cuda, "beam_backtrace": backtrace_cuda,
+    }
+    layers = estimator.model.architecture.num_hidden_layers
+    outputs = []
+    for name, request in serving_requests():
+        batch, kwargs, _predictions, heads, widths = request_log_probs(estimator, name, request)
+        searches = len({widths[head] for head in heads})
+        for mode in ("greedy", "beam"):
+            torch.cuda.synchronize()
+            for counter in counters.values():
+                counter.launches = 0
+            with TwinsForbidden():
+                if mode == "greedy":
+                    grid, lengths = estimator.predict_decoded(batch, heads=heads, **kwargs)
+                    output = (grid.cpu(), lengths.cpu())
+                else:
+                    collected, scores, lengths = estimator.predict_beam_decoded(batch, heads=heads, beam_width=4, **kwargs)
+                    output = (collected.cpu(), scores.cpu(), lengths.cpu())
+            torch.cuda.synchronize()
+            launches = {kernel: counter.launches for kernel, counter in counters.items()}
+            expected = {"oneshot_attention": layers, "frame_encoder": 1, "beam_search": 0, "beam_backtrace": 0}
+            if mode == "beam":
+                expected.update(beam_search=searches, beam_backtrace=searches)
+            check(launches == expected, f"orbax {label} {mode} request {name!r}: launches {launches}, expected {expected}")
+            for kernel, count in launches.items():
+                results[kernel] += count
+            outputs.append((name, mode, output))
+    return outputs
+
+
+def phase_orbax(results: dict, root: Path, card: str) -> None:
+    """Orbax checkpoints through the port's own reader and writer (no orbax,
+    tensorstore or zstd package on this machine): the full-width flagship
+    saved, loaded and restored on the card with its serving outputs equal
+    to the in-memory model's; the committed tensorstore-written fixture
+    decoded and served; ``predict`` from an Orbax directory."""
+    from allophant_tpu_torch.config import Config
+    from allophant_tpu_torch.demo import demo_config_dict, demo_indexer
+    from allophant_tpu_torch.models.allophant import attribute_graph_from_config
+    from allophant_tpu_torch.native import zstd
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+    from allophant_tpu_torch.training import checkpoint as checkpoint_module
+    from allophant_tpu_torch.training.estimator import Estimator
+    from allophant_tpu_torch.training.ocdbt import OcdbtReader
+    from allophant_tpu_torch.training.orbax_arrays import read_tree
+
+    # 1. The serving flagship through save_orbax -> load_checkpoint -> restore.
+    estimator = build_serving_flagship()
+    config = Config.load(demo_config_dict())
+    indexer = demo_indexer(config)
+    checkpoint = checkpoint_module.Checkpoint(
+        config=config,
+        feature_size=1,
+        sample_rate=SAMPLE_RATE,
+        attribute_graph=attribute_graph_from_config(config, indexer),
+        epoch=checkpoint_module.EpochPosition(),
+        phonetic_indexer_state=indexer.state(),
+        variables=checkpoint_module.variables_from_model(estimator.model),
+    )
+    directory = root / "flagship-orbax"
+    start = time.perf_counter()
+    checkpoint_module.save_orbax(checkpoint, str(directory))
+    save_seconds = time.perf_counter() - start
+    size = sum(path.stat().st_size for path in directory.rglob("*") if path.is_file())
+    start = time.perf_counter()
+    loaded = checkpoint_module.load_checkpoint(str(directory))
+    load_seconds = time.perf_counter() - start
+    wanted, got = dict(tree_leaves(checkpoint.variables)), dict(tree_leaves(loaded.variables))
+    check(wanted.keys() == got.keys(), "orbax: the loaded tree differs from the saved one")
+    differing = [key for key, value in wanted.items() if got[key].dtype != value.dtype or not np.array_equal(got[key], value)]
+    check(not differing, f"orbax: {len(differing)} leaves differ after the round trip, e.g. {differing[:3]}")
+    del loaded, got
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with TwinsForbidden():
+        restored, _indexer = Estimator.restore(str(directory), device="cuda")
+    torch.cuda.synchronize()
+    restore_seconds = time.perf_counter() - start
+    check(restored.precision == "mixed" and restored.model.architecture.num_hidden_layers == 24, "orbax: restored preset")
+    print(
+        f"orbax flagship ({card}): save_orbax {save_seconds:.2f} s, {size / 2**30:.3f} GiB in {sum(1 for _ in directory.rglob('*'))}"
+        f" files; load_checkpoint {load_seconds:.2f} s ({size / load_seconds / 1e6:.0f} MB/s), {len(wanted)} leaves bit-equal;"
+        f" Estimator.restore on the card {restore_seconds:.2f} s",
+        flush=True,
+    )
+    expected = serving_outputs(estimator, results, "in-memory")
+    del estimator
+    torch.cuda.empty_cache()
+    outputs = serving_outputs(restored, results, "restored")
+    del restored
+    torch.cuda.empty_cache()
+    for (name, mode, want), (_name, _mode, have) in zip(expected, outputs):
+        cells = sum(int((a != b).sum().item()) for a, b in zip(want, have))
+        check(cells == 0, f"orbax {mode} request {name!r}: {cells} cells differ from the in-memory estimator's")
+    print(f"orbax flagship: {len(outputs)} calls (greedy, beam 4) integer-equal to the in-memory estimator's", flush=True)
+
+    # 2. The fixture tensorstore wrote: zstd chunks, several a kernel.
+    leaves = np.load(ORBAX_FIXTURE / "leaves.npz")
+    fixture = checkpoint_module.load_checkpoint(str(ORBAX_FIXTURE / "checkpoint"))
+    trees = {"checkpoint": fixture.variables, "extras": read_tree(str(ORBAX_FIXTURE / "extras"))}
+    compared = 0
+    for prefix, tree in trees.items():
+        for path, value in tree_leaves(tree):
+            if isinstance(value, dict):
+                continue
+            want = leaves["/".join((prefix, *path))]
+            check(value.dtype == want.dtype and np.array_equal(value, want), f"orbax fixture: {prefix}/{'/'.join(path)} differs")
+            compared += 1
+    check(compared == sum(1 for key in leaves.files), f"orbax fixture: {compared} of {len(leaves.files)} leaves read")
+    frames = []
+    for sub in ("checkpoint/variables", "extras"):
+        reader = OcdbtReader(str(ORBAX_FIXTURE / sub))
+        frames += [reader.read(key) for key in reader.list() if not key.endswith(".zarray")]
+    decoded = sum(len(zstd.decompress(frame)) for frame in frames)
+    rounds = 0
+    start = time.perf_counter()
+    while time.perf_counter() - start < 0.5:
+        for frame in frames:
+            zstd.decompress(frame)
+        rounds += 1
+    rate = decoded * rounds / (time.perf_counter() - start) / 1e6
+    # One frame that decodes to 32 MiB (tools/write_zstd_timing_frame.py):
+    # long matches between short literals, at a checkpoint chunk's size.
+    long_frame = (ZSTD_TIMING / "long_matches.zst").read_bytes()
+    long_meta = json.loads((ZSTD_TIMING / "long_matches.json").read_text(encoding="utf-8"))
+    long_output = np.empty(long_meta["decoded_bytes"], np.uint8)
+    long_seconds = []
+    for _ in range(5):
+        start = time.perf_counter()
+        written = zstd.decompress_into(long_frame, long_output)
+        long_seconds.append(time.perf_counter() - start)
+    check(
+        written == long_output.size and hashlib.sha256(long_output).hexdigest() == long_meta["sha256"],
+        "orbax: the 32 MiB timing frame decodes to other bytes than tools/write_zstd_timing_frame.py made",
+    )
+    long_rate = long_output.size / min(long_seconds) / 1e6
+    del long_output
+    cpu_estimator, _ = Estimator.restore(str(ORBAX_FIXTURE / "checkpoint"), precision="float32", device="cpu")
+    card_estimator, _ = Estimator.restore(str(ORBAX_FIXTURE / "checkpoint"), precision="float32", device="cuda")
+    from allophant_tpu_torch.data.batch import Batch
+
+    rng = np.random.default_rng(5)
+    audio = (rng.standard_normal((3, 1600)) * 0.5).astype(np.float32)
+    batch = Batch(audio, np.array([1600, 1600, 1100], dtype=np.int32), np.zeros(3, dtype=np.int32))
+    heads = tuple(sorted(cpu_estimator.predict(batch, time_major=False).outputs))
+    cpu_grid, _ = cpu_estimator.predict_decoded(batch, heads=heads)
+    card_estimator.predict_decoded(batch, heads=heads)  # warm-up
+    torch.cuda.synchronize()
+    oneshot_attention.launches = 0
+    with TwinsForbidden():
+        card_grid, _ = card_estimator.predict_decoded(batch, heads=heads)
+    torch.cuda.synchronize()
+    layers = fixture.config.nn.acoustic_model.transformer.num_layers
+    check(oneshot_attention.launches == layers, f"orbax fixture: K1 launched {oneshot_attention.launches} times, {layers} layers")
+    results["oneshot_attention"] += oneshot_attention.launches
+    cells = int((card_grid.cpu().to(torch.int32) != cpu_grid.to(torch.int32)).sum().item())
+    check(cells == 0, f"orbax fixture: {cells} grid cells differ between the card and the CPU")
+    print(
+        f"orbax fixture: {compared} leaves bit-equal to leaves.npz ({len(frames)} zstd frames, {decoded} bytes);"
+        f" zstd decoder {rate:.1f} MB/s on this host over them, {long_rate:.1f} MB/s on a {len(long_frame)}-byte frame of"
+        f" {long_meta['decoded_bytes']} bytes (best of 5: {', '.join(f'{t * 1e3:.2f}' for t in long_seconds)} ms);"
+        f" restored float32 on the card, one request: grid {tuple(card_grid.shape)}"
+        f" equal to the CPU's, K1 {layers} launches",
+        flush=True,
+    )
+    del card_estimator, cpu_estimator
+
+    # 3. predict from an Orbax copy of phase 12's checkpoint.
+    from allophant_tpu_torch.ops.beam_kernel import backtrace_cuda, beam_search_cuda
+
+    native = checkpoint_module.load_checkpoint(str(root / "flagship.ckpt"))
+    converted = root / "flagship-loop-orbax"
+    checkpoint_module.save_orbax(native, str(converted))
+    del native
+    output = root / "predict-greedy-orbax.jsonl"
+    counters = {**kernel_counters(), "beam_search": beam_search_cuda, "beam_backtrace": backtrace_cuda}
+    arguments = [
+        "predict", str(root / "predict"), str(converted), "--no-progress", "-m", "utterances", "-s", str(PREDICT_BATCH),
+        "--language-phonemes", "-o", str(output),
+    ]
+    launches, _timing, seconds = run_cli(arguments, counters)
+    for kernel, count in launches.items():
+        results[kernel] += count
+    native_lines = (root / "predict-greedy.jsonl").read_text(encoding="utf-8").splitlines()
+    orbax_lines = output.read_text(encoding="utf-8").splitlines()
+    # The header differs only in the arguments' text, which names the paths.
+    headers = [{**json.loads(lines[0]), "prediction_arguments": None} for lines in (native_lines, orbax_lines)]
+    check(headers[0] == headers[1], "orbax predict: the JSONL header differs from the native checkpoint's")
+    differing = sum(a != b for a, b in zip(native_lines[1:], orbax_lines[1:]))
+    check(len(native_lines) == len(orbax_lines) and differing == 0, f"orbax predict: {differing} JSONL lines differ from the native checkpoint's")
+    check(launches["oneshot_attention"] > 0 and launches["frame_encoder"] > 0, f"orbax predict: launches {launches}")
+    print(
+        f"orbax predict: {len(orbax_lines) - 1} utterance lines from the Orbax directory equal to the native checkpoint's;"
+        f" {seconds:.2f} s with the restore; launches {launches}",
+        flush=True,
+    )
 
 
 def phase_predict_float32(root: Path) -> None:
@@ -4195,7 +4423,7 @@ def main() -> int:
     if sys.argv[1:] == [MULTI_GPU_FLAG]:
         return multi_gpu_only()
     overall = time.perf_counter()
-    timed("card", phase_card)
+    card = timed("card", phase_card)
     timed("build", phase_build)
     timed("tensor cores", phase_tensor_cores)
     timed("frame encoder SASS", phase_frame_encoder_sass)
@@ -4256,6 +4484,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("predict", phase_predict, launches, root, master_params)
         del master_params
+        torch.cuda.empty_cache()
+        timed("orbax", phase_orbax, launches, root, card)
         torch.cuda.empty_cache()
         timed("predict float32", phase_predict_float32, root)
         torch.cuda.empty_cache()

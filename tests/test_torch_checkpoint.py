@@ -154,11 +154,12 @@ def test_mismatches_and_missing_paths_raise(jax_checkpoint, tmp_path):
         _restore(checkpoint)
     with pytest.raises(FileNotFoundError):
         _restore(str(tmp_path / "missing.ckpt"))
-    orbax = tmp_path / "orbax"
-    orbax.mkdir()
-    (orbax / checkpoint_module.ORBAX_METADATA_FILE).write_text("{}")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint_module.load_checkpoint(str(orbax))
+    # An Orbax directory is no longer refused: it restores bit-equal.
+    orbax = str(tmp_path / "orbax")
+    checkpoint_module.save_orbax(checkpoint_module.load_native(path), orbax)
+    estimator, _indexer = _restore(orbax)
+    _assert_trees_bit_equal(checkpoint_module.variables_from_model(estimator.model), jax_checkpoint[1])
+    assert estimator.training_state == b"jax-optimizer"
 
 
 def test_restore_takes_a_model_id_from_the_local_hub_cache(jax_checkpoint, tmp_path, monkeypatch):

@@ -1,7 +1,7 @@
 """Import guard of the PyTorch port: no module of allophant_tpu_torch (the
 C++ build helper ``native/build.py`` included), and not chip_smoke.py,
-imports JAX, flax, orbax, pandas, msgpack, regex, transformers, safetensors
-or the JAX package — the machine with the GPU may have none of them."""
+imports JAX, flax, orbax, pandas, msgpack, regex, transformers, safetensors,
+tensorstore, zstandard or the JAX package — the machine with the GPU may have none of them."""
 
 import ast
 import subprocess
@@ -11,7 +11,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "msgpack", "regex", "allophant_tpu", "transformers", "safetensors")
+FORBIDDEN = (
+    "jax", "jaxlib", "flax", "optax", "orbax", "pandas", "msgpack", "regex", "allophant_tpu", "transformers",
+    "safetensors", "tensorstore", "zstandard",
+)
 SOURCES = sorted((ROOT / "allophant_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 

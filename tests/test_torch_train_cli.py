@@ -28,7 +28,8 @@ from allophant_tpu.cli import run as jax_cli
 from allophant_tpu.training import checkpoint as jax_checkpoint
 from allophant_tpu.training.estimator import Estimator as JaxEstimator
 from allophant_tpu_torch.cli import run as cli
-from allophant_tpu_torch.training.checkpoint import load_checkpoint
+from allophant_tpu_torch.training import checkpoint as checkpoint_module
+from allophant_tpu_torch.training.checkpoint import load_checkpoint, save_orbax
 from allophant_tpu_torch.training.estimator import Estimator
 from allophant_tpu_torch.weights import load_jax_variables
 
@@ -222,6 +223,50 @@ def test_restore_prefers_the_newer_of_interrupted_and_best(tmp_path):
     assert cli._prefer_interrupted_checkpoint(str(best), str(tmp_path)) == str(best)
     os.utime(interrupted, (3_000, 3_000))
     assert cli._prefer_interrupted_checkpoint(str(best), str(tmp_path)) == str(interrupted)
+
+
+class _Restored(Exception):
+    pass
+
+
+def test_training_into_an_orbax_directory_restores_the_newer_weights(workdir, runs, tmp_path, caplog):
+    """``train --restore -s DIR`` where DIR is an Orbax checkpoint (the port
+    run's epoch-1 checkpoint, saved as one): without ``-d`` it is refused
+    before the corpus is read, since the best model would replace the
+    directory; with it the run resumes from the Orbax weights and writes
+    epoch 2 and best.ckpt beside them, equal to the uninterrupted run's; the
+    next ``--restore`` takes that best.ckpt, not the Orbax weights."""
+    _jax_directory, port_directory = runs
+    directory = tmp_path / "orbax"
+    save_orbax(load_checkpoint(str(port_directory / "epoch-1.ckpt")), str(directory))
+    arguments = [*_arguments(workdir, directory, 2), "--restore", "--no-progress"]
+    with pytest.raises(ValueError, match="Orbax checkpoint directory: train into it with --save-all"):
+        cli.main([argument for argument in arguments if argument != "-d"])
+    with caplog.at_level("INFO", logger="allophant_tpu_torch"):
+        cli.main(arguments)
+    assert f"Restoring from {directory}" in caplog.messages
+    assert {"best.ckpt", "epoch-2.ckpt"} <= set(os.listdir(directory))
+    expected = load_checkpoint(str(port_directory / "epoch-2.ckpt"))
+    for name in ("epoch-2.ckpt", "best.ckpt"):
+        resumed = load_checkpoint(str(directory / name))
+        assert resumed.epoch.to_dict() == expected.epoch.to_dict(), name
+        ours = dict(jax.tree_util.tree_flatten_with_path(resumed.variables["params"])[0])
+        for key, value in jax.tree_util.tree_flatten_with_path(expected.variables["params"])[0]:
+            np.testing.assert_array_equal(ours[key], value, err_msg=f"{name} {jax.tree_util.keystr(key)}")
+
+    restored = []
+
+    def record(path):
+        restored.append((path, load_checkpoint(path)))
+        raise _Restored
+
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(checkpoint_module, "load_checkpoint", record)
+        with pytest.raises(_Restored):
+            cli.main(arguments)
+    ((path, checkpoint),) = restored
+    assert path == str(directory / "best.ckpt")
+    assert checkpoint.epoch.to_dict() == expected.epoch.to_dict()
 
 
 def test_train_runs_on_the_card_unless_asked_for_the_cpu(workdir, tmp_path, monkeypatch):
