@@ -28,6 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from allophant_tpu_torch import tracing
 from allophant_tpu_torch.ops import masking
 
 
@@ -46,6 +47,7 @@ def _ctc_rows(log_probs, labels, logit_lengths, label_lengths, blank_id: int) ->
     gradient) and is zeroed after: its true loss is +inf, whose gradient would
     be NaN even under a zero cotangent."""
     degenerate = _degenerate_rows(labels, label_lengths, logit_lengths)
+    tracing.count("ctc_calls")
     losses = F.ctc_loss(
         log_probs.transpose(0, 1).double(),
         labels.long(),

@@ -18,6 +18,7 @@ from typing import List, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from allophant_tpu_torch import tracing
 from allophant_tpu_torch.device import resolve_device, to_device
 from allophant_tpu_torch.ops import masking
 from allophant_tpu_torch.ops.beam_kernel import MAX_CLASSES, backtrace_cuda
@@ -37,6 +38,7 @@ def greedy_decode_padded(log_emissions: torch.Tensor, lengths: torch.Tensor, bla
     """``log_emissions``: [B, T, C]; returns (tokens [B, T], timesteps [B, T],
     token_counts [B], scores [B]) where each row's first ``token_counts[b]``
     entries are the collapsed non-blank tokens (the rest -1)."""
+    tracing.count("decode_calls")
     # torch.argmax returns the first maximal index, as jnp.argmax does.
     best, indices = log_emissions.amax(dim=-1), log_emissions.argmax(dim=-1)
     return _collapse_greedy(indices, best, lengths, blank_index)
@@ -508,6 +510,7 @@ def beam_search_heads(
     its phone and phoneme outputs one or two more."""
     if not log_probs:
         raise ValueError("beam_search_heads needs at least one head")
+    tracing.count("decode_calls")
     batch, time = log_probs[0].shape[:2]
     device = log_probs[0].device
     collected = torch.empty(len(log_probs), time, batch, beam_width, dtype=torch.int16, device=device)

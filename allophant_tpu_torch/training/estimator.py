@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from allophant_tpu_torch import tracing
 from allophant_tpu_torch.config import Config, Wav2Vec2PretrainedConfig
 from allophant_tpu_torch.data.batch import Batch
 from allophant_tpu_torch.device import resolve_device, set_float32_precision, to_device
@@ -473,11 +474,16 @@ class Estimator:
         gathered = mesh_module.gather_rows(tensor.movedim(dim, 0), start, total, self.mesh.data_group)
         return gathered[:size].movedim(0, dim)
 
-    def _forward(self, batch: Batch, target_feature_indices) -> Tuple[Predictions, torch.Tensor]:
+    def _forward(self, batch: Batch, target_feature_indices) -> Tuple[Predictions, torch.Tensor, Any]:
+        """(predictions, language ids on the device, the rows' place from
+        ``_local_rows``) of this rank's rows of ``batch``."""
         set_float32_precision(self.f32_matmul_precision)
-        (audio, lengths, language_ids), target_feature_indices = self._inputs(batch, target_feature_indices)
-        predictions = self.model(audio, lengths, language_ids, target_feature_indices, predict=True)
-        return predictions, language_ids
+        with tracing.span("estimator.inputs"):
+            batch, place = self._local_rows(batch)
+            (audio, lengths, language_ids), target_feature_indices = self._inputs(batch, target_feature_indices)
+        with tracing.span("estimator.forward"):
+            predictions = self.model(audio, lengths, language_ids, target_feature_indices, predict=True)
+        return predictions, language_ids, place
 
     @torch.inference_mode()
     def predict(
@@ -489,15 +495,16 @@ class Estimator:
     ) -> Predictions:
         """Per-task outputs, time-first [T, B, C] by default (batch-first with
         ``time_major=False``); log-probabilities are taken in f32 on every path."""
-        batch, place = self._local_rows(batch)
-        predictions, _ = self._forward(batch, target_feature_indices)
-        outputs = predictions.outputs
-        if log_probabilities:
-            outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in outputs.items()}
-        outputs = {name: self._all_rows(value, place) for name, value in outputs.items()}
-        if time_major:
-            outputs = {name: value.transpose(0, 1) for name, value in outputs.items()}
-        return Predictions(outputs, self._all_rows(predictions.lengths, place))
+        with tracing.span("estimator.request"):
+            predictions, _, place = self._forward(batch, target_feature_indices)
+            with tracing.span("estimator.decode"):
+                outputs = predictions.outputs
+                if log_probabilities:
+                    outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in outputs.items()}
+                outputs = {name: self._all_rows(value, place) for name, value in outputs.items()}
+                if time_major:
+                    outputs = {name: value.transpose(0, 1) for name, value in outputs.items()}
+                return Predictions(outputs, self._all_rows(predictions.lengths, place))
 
     @torch.inference_mode()
     def predict_decoded(
@@ -511,25 +518,26 @@ class Estimator:
         ``grid`` is uint16 [H, B, T'+1] — per head ``heads[h]``, row b: column 0
         the decoded token count, columns 1.. the blank-free collapsed token ids
         (0 past the count)."""
-        batch, place = self._local_rows(batch)
-        predictions, language_ids = self._forward(batch, target_feature_indices)
-        outputs = dict(predictions.outputs)
-        if map_allophones:
-            # Map log-probs, not raw logits: the allophone max-pool multiplies by
-            # learned weights, so its argmax is not invariant to log_softmax.
-            outputs[PHONEME_LAYER] = self.model.map_allophones(
-                torch.log_softmax(outputs[PHONE].float(), dim=-1), language_ids
-            )
-        lanes = []
-        for name in heads:
-            # Per-head greedy argmax is invariant to log_softmax (a per-frame
-            # shift), so plain heads decode raw outputs.
-            tokens, _timesteps, counts, _scores = greedy_decode_padded(
-                outputs[name], predictions.lengths, BLANK_INDEX
-            )
-            lanes.append(torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
-        grid = torch.stack(lanes).to(torch.uint16)
-        return self._all_rows(grid, place, dim=1), self._all_rows(predictions.lengths, place)
+        with tracing.span("estimator.request"):
+            predictions, language_ids, place = self._forward(batch, target_feature_indices)
+            with tracing.span("estimator.decode"):
+                outputs = dict(predictions.outputs)
+                if map_allophones:
+                    # Map log-probs, not raw logits: the allophone max-pool multiplies by
+                    # learned weights, so its argmax is not invariant to log_softmax.
+                    outputs[PHONEME_LAYER] = self.model.map_allophones(
+                        torch.log_softmax(outputs[PHONE].float(), dim=-1), language_ids
+                    )
+                lanes = []
+                for name in heads:
+                    # Per-head greedy argmax is invariant to log_softmax (a per-frame
+                    # shift), so plain heads decode raw outputs.
+                    tokens, _timesteps, counts, _scores = greedy_decode_padded(
+                        outputs[name], predictions.lengths, BLANK_INDEX
+                    )
+                    lanes.append(torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
+                grid = torch.stack(lanes).to(torch.uint16)
+                return self._all_rows(grid, place, dim=1), self._all_rows(predictions.lengths, place)
 
     @torch.inference_mode()
     def predict_beam_decoded(
@@ -549,19 +557,20 @@ class Estimator:
         not invariant to log_softmax; with ``map_allophones`` the phoneme layer
         is the allophone map of the phone head's log-probs. Heads of equal
         class count share one search launch (``beam_search_heads``)."""
-        batch, place = self._local_rows(batch)
-        predictions, language_ids = self._forward(batch, target_feature_indices)
-        outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in predictions.outputs.items()}
-        if map_allophones:
-            outputs[PHONEME_LAYER] = self.model.map_allophones(outputs[PHONE], language_ids)
-        collected, scores = beam_search_heads(
-            [outputs[name] for name in heads], predictions.lengths, beam_width, BLANK_INDEX
-        )
-        return (
-            self._all_rows(collected, place, dim=2),
-            self._all_rows(scores, place, dim=1),
-            self._all_rows(predictions.lengths, place),
-        )
+        with tracing.span("estimator.request"):
+            predictions, language_ids, place = self._forward(batch, target_feature_indices)
+            with tracing.span("estimator.decode"):
+                outputs = {name: torch.log_softmax(value.float(), dim=-1) for name, value in predictions.outputs.items()}
+                if map_allophones:
+                    outputs[PHONEME_LAYER] = self.model.map_allophones(outputs[PHONE], language_ids)
+                collected, scores = beam_search_heads(
+                    [outputs[name] for name in heads], predictions.lengths, beam_width, BLANK_INDEX
+                )
+                return (
+                    self._all_rows(collected, place, dim=2),
+                    self._all_rows(scores, place, dim=1),
+                    self._all_rows(predictions.lengths, place),
+                )
 
     def downsampled_lengths(self, lengths) -> np.ndarray:
         """CTC frame counts of audio lengths in samples."""

@@ -24,6 +24,7 @@ checkpoint, which only the mesh's first rank writes."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import math
@@ -34,6 +35,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from allophant_tpu_torch import tracing
 from allophant_tpu_torch.config import Config, ProfilingConfig, Wav2Vec2Config, Wav2Vec2PretrainedConfig
 from allophant_tpu_torch.data.batch import LabeledBatch
 from allophant_tpu_torch.data.batching import Batcher
@@ -448,7 +450,10 @@ class StepProfiler:
     ``repeat`` times; reference estimator.py:405-418, 829-842): the device and
     host trace into ``tensorboard_dir`` (TensorBoard's trace handler) and the
     device stacks (self CUDA time) at ``flame_graph_path_gpu``; a sampled
-    host flame graph in collapsed-stack format at ``flame_graph_path_cpu``."""
+    host flame graph in collapsed-stack format at ``flame_graph_path_cpu``.
+
+    While the profiler runs, the port's spans are on (``tracing.py``): the
+    profiler keeps those of the steps it records."""
 
     WAIT_STEPS, WARMUP_STEPS = 1, 2
 
@@ -456,6 +461,7 @@ class StepProfiler:
         self._config = config
         self._profiler = None
         self._sampler: Optional[_StackSampler] = None
+        self._tracing = contextlib.ExitStack()
         if config is None or not (config.tensorboard_dir or config.flame_graph_path_cpu or config.flame_graph_path_gpu):
             return
         if config.tensorboard_dir or config.flame_graph_path_gpu:
@@ -475,6 +481,7 @@ class StepProfiler:
                 with_stack=bool(config.flame_graph_path_gpu),
             )
             self._profiler.start()
+            self._tracing.enter_context(tracing.recording())
         if config.flame_graph_path_cpu:
             self._sampler = _StackSampler()
 
@@ -485,6 +492,7 @@ class StepProfiler:
 
     def stop(self) -> None:
         if self._profiler is not None:
+            self._tracing.close()
             self._profiler.stop()
             if self._config.flame_graph_path_gpu:
                 self._profiler.export_stacks(self._config.flame_graph_path_gpu, "self_cuda_time_total")

@@ -35,6 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from allophant_tpu_torch import tracing
 from allophant_tpu_torch.config import Adam, Architecture, SequenceCrossEntropyLossConfig, SGD, Wav2Vec2PretrainedConfig
 from allophant_tpu_torch.models.allophant import AllophantModel
 from allophant_tpu_torch.models.layers import DropoutRng
@@ -190,29 +191,31 @@ def multitask_loss(
     ``total_labels`` replaces the batch's own label count as the objective's
     denominator (a data-parallel rank divides by the whole microbatch's);
     ``penalty=False`` leaves the allophone L2 penalty out of the objective."""
-    predictions = model(batch["audio"], batch["lengths"], batch["language_ids"], rng=rng)
-    outputs = predictions.outputs
-    row_weights = batch.get("row_weights")
-    head_losses = ctc_loss_sum_heads(
-        [(name, outputs[name], batch[f"labels_{name}"], batch[f"label_lengths_{name}"]) for name in loss_plan.ctc_heads],
-        predictions.lengths,
-        row_weights=row_weights,
-    )
-    total_loss = torch.zeros((), dtype=torch.float32, device=batch["audio"].device)
-    for name in loss_plan.ctc_heads:
-        total_loss = total_loss + head_losses[name]
-    for name, smoothing in loss_plan.cross_entropy_heads:
-        loss = sequence_cross_entropy_sum(
-            outputs[name], predictions.lengths, batch[f"labels_{name}"], label_smoothing=smoothing, row_weights=row_weights
+    with tracing.span("train.forward"):
+        predictions = model(batch["audio"], batch["lengths"], batch["language_ids"], rng=rng)
+    with tracing.span("train.loss"):
+        outputs = predictions.outputs
+        row_weights = batch.get("row_weights")
+        head_losses = ctc_loss_sum_heads(
+            [(name, outputs[name], batch[f"labels_{name}"], batch[f"label_lengths_{name}"]) for name in loss_plan.ctc_heads],
+            predictions.lengths,
+            row_weights=row_weights,
         )
-        head_losses[name] = loss
-        total_loss = total_loss + loss
-    total_length = label_count(batch, loss_plan)
-    denominator = total_length if total_labels is None else total_labels
-    objective = total_loss / denominator.clamp_min(1.0)
-    if loss_plan.has_allophone_penalty and penalty:
-        objective = objective + loss_plan.allophone_l2_alpha * model.l2_penalty()
-    return objective, {"loss": total_loss, "label_count": total_length, **head_losses}
+        total_loss = torch.zeros((), dtype=torch.float32, device=batch["audio"].device)
+        for name in loss_plan.ctc_heads:
+            total_loss = total_loss + head_losses[name]
+        for name, smoothing in loss_plan.cross_entropy_heads:
+            loss = sequence_cross_entropy_sum(
+                outputs[name], predictions.lengths, batch[f"labels_{name}"], label_smoothing=smoothing, row_weights=row_weights
+            )
+            head_losses[name] = loss
+            total_loss = total_loss + loss
+        total_length = label_count(batch, loss_plan)
+        denominator = total_length if total_labels is None else total_labels
+        objective = total_loss / denominator.clamp_min(1.0)
+        if loss_plan.has_allophone_penalty and penalty:
+            objective = objective + loss_plan.allophone_l2_alpha * model.l2_penalty()
+        return objective, {"loss": total_loss, "label_count": total_length, **head_losses}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,6 +253,7 @@ def apply_freeze_plan(model: AllophantModel, plan: FreezePlan, step: int) -> Non
 
 def _to_host(names: Sequence[str], values: Sequence[torch.Tensor]) -> Dict[str, float]:
     """One stacked device-to-host transfer of scalar metrics."""
+    tracing.count("host_reads")
     stacked = torch.stack([value.detach().float().reshape(()) for value in values]).cpu().tolist()
     return dict(zip(names, stacked))
 
@@ -286,7 +290,8 @@ def accumulate_gradients(
     for index in range(count):
         microbatch = {key: value[index] for key, value in microbatches.items()}
         objective, metrics = multitask_loss(model, microbatch, loss_plan, rng, totals[index], penalty)
-        objective.backward()
+        with tracing.span("train.backward"):
+            objective.backward()
         values = torch.stack(
             [metrics[name].detach().float() for name in ("loss", "label_count", *loss_plan.head_names)]
         )
@@ -351,16 +356,20 @@ def make_train_step(
         global_step: int = 0,
         extra: Sequence[float] = (),
     ):
-        summed = accumulate_gradients(model, microbatches, loss_plan, rng, mesh, extra)
-        if extra and model_group is not None:
-            # A flag of one column reaches the others; counts are the same in each.
-            all_reduce(summed[-len(extra) :], model_group, dist.ReduceOp.MAX)
-        apply_freeze_plan(model, freeze_plan, global_step)
-        grads = [parameter.grad for parameter in model.parameters()]
-        grad_norm = global_norm(grads, sharded, model_group)
-        optimizer.update(grad_norm)
+        with tracing.span("train.step"):
+            summed = accumulate_gradients(model, microbatches, loss_plan, rng, mesh, extra)
+            if extra and model_group is not None:
+                # A flag of one column reaches the others; counts are the same in each.
+                all_reduce(summed[-len(extra) :], model_group, dist.ReduceOp.MAX)
+            with tracing.span("train.optimizer"):
+                apply_freeze_plan(model, freeze_plan, global_step)
+                grads = [parameter.grad for parameter in model.parameters()]
+                grad_norm = global_norm(grads, sharded, model_group)
+                optimizer.update(grad_norm)
+            with tracing.span("train.metrics"):
+                tracing.count("host_reads")
+                values = torch.cat([summed, grad_norm.reshape(1)]).detach().float().cpu().tolist()
         metric_names = ("loss_sum", "label_count", *loss_plan.head_names)
-        values = torch.cat([summed, grad_norm.reshape(1)]).detach().float().cpu().tolist()
         metrics = dict(zip((*metric_names, "grad_norm"), values[: len(metric_names)] + values[-1:]))
         metrics["mean_loss"] = metrics["loss_sum"] / max(metrics["label_count"], 1.0)
         if extra:
