@@ -13,7 +13,7 @@ same way by ``backtrace_on_device``."""
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -497,6 +497,57 @@ def backtrace_beams(parents, emitted, scores, lengths):
     return collected, np.asarray(scores)
 
 
+def stacked_groups(heads: Sequence[torch.Tensor], lengths: torch.Tensor):
+    """Heads over the same frames ([B, T, C_h] each) grouped by class count
+    and dtype, in the order of each group's first head: yields ``(members,
+    emissions [G·B, T, C], lengths [G·B])``, where ``members`` are the group's
+    indices into ``heads`` and its heads lie along the batch axis in that
+    order. Rows are independent, so a group decodes as one batch; a group of
+    one is its head and ``lengths`` as given."""
+    groups: Dict[tuple, List[int]] = {}
+    for head, values in enumerate(heads):
+        groups.setdefault((values.shape[-1], values.dtype), []).append(head)
+    for members in groups.values():
+        if len(members) == 1:
+            yield members, heads[members[0]], lengths
+        else:
+            yield members, torch.cat([heads[head] for head in members]), lengths.repeat(len(members))
+
+
+def greedy_decode_heads(
+    log_emissions: Sequence[torch.Tensor], lengths: torch.Tensor, blank_index: int = 0
+) -> torch.Tensor:
+    """Greedy decoding of several heads over the same frames ([B, T, C_h]
+    each) into the serving grid: uint16 [H, B, T+1] in the order of
+    ``log_emissions``, where row b of head h holds the decoded token count,
+    then the collapsed tokens (0 past the count).
+
+    Heads of equal class count and dtype make one ``greedy_decode_padded``
+    call (``stacked_groups``): the flagship's 36 four-class attribute heads
+    one, its phoneme and phone outputs one more."""
+    if not log_emissions:
+        raise ValueError("greedy_decode_heads needs at least one head")
+    tracing.count("decode_heads", len(log_emissions))
+    batch, time = log_emissions[0].shape[:2]
+    place = {}
+    for members, stacked, stacked_lengths in stacked_groups(log_emissions, lengths):
+        tokens, _timesteps, counts, _scores = greedy_decode_padded(stacked, stacked_lengths, blank_index)
+        lanes = torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32)
+        lanes = lanes.view(len(members), batch, time + 1)
+        place.update((head, (lanes, index)) for index, head in enumerate(members))
+    # Consecutive heads of one group are a slice of its lanes: the grid is one
+    # copy of those runs in the caller's order.
+    runs: List[list] = []
+    for head in range(len(log_emissions)):
+        lanes, index = place[head]
+        if runs and runs[-1][0] is lanes and runs[-1][2] == index:
+            runs[-1][2] += 1
+        else:
+            runs.append([lanes, index, index + 1])
+    pieces = [lanes[start:end] for lanes, start, end in runs]
+    return (torch.cat(pieces) if len(pieces) > 1 else pieces[0]).to(torch.uint16)
+
+
 def beam_search_heads(
     log_probs: Sequence[torch.Tensor], lengths: torch.Tensor, beam_width: int = 4, blank_index: int = 0
 ):
@@ -504,23 +555,19 @@ def beam_search_heads(
     ([B, T, C_h] each): returns ``collected`` int16 [H, T, B, K] and ``scores``
     f32 [H, B, K] in the order of ``log_probs``.
 
-    Rows are independent, so heads of equal class count are stacked along the
-    batch axis and searched by one launch (and backtraced by one more): the
-    flagship's 36 four-class attribute heads make one [36·B, T, 4] search,
-    its phone and phoneme outputs one or two more."""
+    Heads of equal class count and dtype are searched by one launch (and
+    backtraced by one more; ``stacked_groups``): the flagship's 36 four-class
+    attribute heads make one [36·B, T, 4] search, its phone and phoneme
+    outputs one or two more."""
     if not log_probs:
         raise ValueError("beam_search_heads needs at least one head")
     tracing.count("decode_calls")
+    tracing.count("decode_heads", len(log_probs))
     batch, time = log_probs[0].shape[:2]
     device = log_probs[0].device
     collected = torch.empty(len(log_probs), time, batch, beam_width, dtype=torch.int16, device=device)
     scores = torch.empty(len(log_probs), batch, beam_width, dtype=torch.float32, device=device)
-    groups: dict = {}
-    for head, values in enumerate(log_probs):
-        groups.setdefault(values.shape[-1], []).append(head)
-    for members in groups.values():
-        stacked = torch.cat([log_probs[head] for head in members]) if len(members) > 1 else log_probs[members[0]]
-        stacked_lengths = lengths.repeat(len(members))
+    for members, stacked, stacked_lengths in stacked_groups(log_probs, lengths):
         parents, emitted, group_scores = beam_search_device(stacked, stacked_lengths, beam_width, blank_index)
         group_collected = backtrace_on_device(parents, emitted, stacked_lengths)
         index = to_device(torch.tensor(members), device)

@@ -19,7 +19,10 @@ Spans: ``estimator.request`` (a ``predict*`` call) encloses
 ``train.step`` (an update) encloses each microbatch's ``train.forward``,
 ``train.loss`` and ``train.backward``, then ``train.optimizer`` and
 ``train.metrics``. Counters: ``decode_calls`` (``ops/decode.py``: one a
-greedy or beam decoding call), ``ctc_calls`` (``ops/ctc.py``: one a
+``greedy_decode_padded`` call, so one a group of heads of equal class count
+in greedy serving, and one a ``beam_search_heads`` call), ``decode_heads``
+(the heads those serving calls decode: ``decode_heads / decode_calls`` is
+how many heads a greedy call stacks), ``ctc_calls`` (``ops/ctc.py``: one a
 ``F.ctc_loss`` call) and ``host_reads`` (one a ``.cpu()`` read of the
 training or evaluation step's metrics). How often the host waits for the
 card is the CUDA runtime's to count (``torch.cuda.set_sync_debug_mode``),

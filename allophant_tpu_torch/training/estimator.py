@@ -29,7 +29,7 @@ from allophant_tpu_torch.device import resolve_device, set_float32_precision, to
 from allophant_tpu_torch.models.allophant import AllophantModel, Predictions
 from allophant_tpu_torch.models.projection import PHONE, PHONEME_LAYER
 from allophant_tpu_torch.models.wav2vec2 import REMAT_SAVE_NAMES_BASE, Wav2Vec2Architecture
-from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_padded
+from allophant_tpu_torch.ops.decode import beam_search_heads, greedy_decode_heads
 from allophant_tpu_torch.parallel import mesh as mesh_module
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer, PhoneticIndexerState
@@ -517,7 +517,8 @@ class Estimator:
         """Fused greedy serving step: returns (grid, lengths) device tensors where
         ``grid`` is uint16 [H, B, T'+1] — per head ``heads[h]``, row b: column 0
         the decoded token count, columns 1.. the blank-free collapsed token ids
-        (0 past the count)."""
+        (0 past the count). Heads of equal class count and dtype share one
+        decoding call (``greedy_decode_heads``)."""
         with tracing.span("estimator.request"):
             predictions, language_ids, place = self._forward(batch, target_feature_indices)
             with tracing.span("estimator.decode"):
@@ -528,15 +529,9 @@ class Estimator:
                     outputs[PHONEME_LAYER] = self.model.map_allophones(
                         torch.log_softmax(outputs[PHONE].float(), dim=-1), language_ids
                     )
-                lanes = []
-                for name in heads:
-                    # Per-head greedy argmax is invariant to log_softmax (a per-frame
-                    # shift), so plain heads decode raw outputs.
-                    tokens, _timesteps, counts, _scores = greedy_decode_padded(
-                        outputs[name], predictions.lengths, BLANK_INDEX
-                    )
-                    lanes.append(torch.cat((counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
-                grid = torch.stack(lanes).to(torch.uint16)
+                # Per-head greedy argmax is invariant to log_softmax (a per-frame
+                # shift), so plain heads decode raw outputs.
+                grid = greedy_decode_heads([outputs[name] for name in heads], predictions.lengths, BLANK_INDEX)
                 return self._all_rows(grid, place, dim=1), self._all_rows(predictions.lengths, place)
 
     @torch.inference_mode()

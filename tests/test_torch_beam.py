@@ -236,6 +236,34 @@ def test_stacked_heads_equal_head_by_head_search():
         np.testing.assert_array_equal(scores[index].numpy(), head_scores.numpy())
 
 
+@pytest.mark.parametrize("widths", [(4, 40, 4, 7, 40), (4, 4, 4, 40, 40), (6,)])
+def test_stacked_heads_equal_the_search_grouped_by_class_count(widths):
+    """``beam_search_heads`` on the grouping it shares with the greedy path
+    is bit-equal to searching each class count's heads stacked, as it did
+    before the grouping was shared, and counts one call of ``len(widths)``
+    heads."""
+    from allophant_tpu_torch import tracing
+
+    lengths = torch.tensor([18, 1, 0], dtype=torch.int64)
+    heads = [torch.from_numpy(_log_probs(3, 18, width, seed=50 + index, quantised=True)) for index, width in enumerate(widths)]
+    with tracing.recording() as counts:
+        collected, scores = decode.beam_search_heads(heads, lengths, beam_width=4, blank_index=1)
+    assert counts == {"decode_calls": 1, "decode_heads": len(widths)}
+    expected_collected = torch.empty(len(widths), 18, 3, 4, dtype=torch.int16)
+    expected_scores = torch.empty(len(widths), 3, 4)
+    for width in dict.fromkeys(widths):
+        members = [index for index, other in enumerate(widths) if other == width]
+        stacked_lengths = lengths.repeat(len(members))
+        parents, emitted, group_scores = decode.beam_search_device(
+            torch.cat([heads[index] for index in members]), stacked_lengths, 4, 1
+        )
+        group_collected = decode.backtrace_on_device(parents, emitted, stacked_lengths)
+        index = torch.tensor(members)
+        expected_collected[index] = group_collected.view(18, len(members), 3, 4).transpose(0, 1).to(torch.int16)
+        expected_scores[index] = group_scores.view(len(members), 3, 4)
+    assert torch.equal(collected, expected_collected)
+    assert torch.equal(scores, expected_scores)
+
 def test_cpu_tensors_take_the_plain_versions_and_other_devices_raise():
     log_probs = torch.from_numpy(_log_probs(2, 6, 5, seed=7))
     lengths = torch.tensor([6, 3])

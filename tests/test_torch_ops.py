@@ -313,6 +313,46 @@ class TestGreedyDecode:
         np.testing.assert_allclose(got[3].numpy(), np.asarray(expected[3]), rtol=1e-5)
 
 
+#: case -> the heads' (class count, dtype), in the caller's order.
+HEAD_GROUPINGS = {
+    # Groups interleaved, with a group of one (7).
+    "interleaved": ((4, torch.float32), (40, torch.float32), (4, torch.float32), (7, torch.float32), (40, torch.float32)),
+    # The flagship's order: contiguous runs, one plain copy.
+    "contiguous": ((4, torch.float32),) * 5 + ((40, torch.float32),) * 2,
+    "single": ((40, torch.float32),),
+    # One class count in two dtypes: two groups.
+    "dtypes": ((4, torch.float32), (4, torch.bfloat16), (4, torch.float32), (4, torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("blank_index", [0, 3])
+@pytest.mark.parametrize("case", list(HEAD_GROUPINGS))
+def test_grouped_greedy_heads_equal_the_per_head_lanes(case, blank_index):
+    """``greedy_decode_heads`` decodes heads of equal class count and dtype
+    in one call; its grid equals one ``greedy_decode_padded`` lane per head,
+    stacked in the caller's order."""
+    from allophant_tpu_torch import tracing
+
+    widths = HEAD_GROUPINGS[case]
+    rng = np.random.default_rng(17)
+    # Rows of length 0, 1 and full; coarse integer logits force argmax ties
+    # (exact in bf16 too).
+    lengths = torch.tensor([0, 1, 33, 20])
+    heads = [
+        torch.from_numpy(rng.integers(-3, 4, size=(4, 33, classes)).astype(np.float32)).to(dtype)
+        for classes, dtype in widths
+    ]
+    with tracing.recording() as counts:
+        grid = decode.greedy_decode_heads(heads, lengths, blank_index)
+    lanes = []
+    for values in heads:
+        tokens, _timesteps, head_counts, _scores = decode.greedy_decode_padded(values, lengths, blank_index)
+        lanes.append(torch.cat((head_counts[:, None], tokens.clamp_min(0)), dim=1).to(torch.int32))
+    expected = torch.stack(lanes).to(torch.uint16)
+    assert grid.dtype == torch.uint16 and grid.shape == (len(heads), 4, 34)
+    np.testing.assert_array_equal(grid.to(torch.int32).numpy(), expected.to(torch.int32).numpy())
+    assert counts == {"decode_calls": len(set(widths)), "decode_heads": len(heads)}
+
 def test_entry_points_never_fall_back_to_the_cpu():
     """Without a CUDA device, entry points that default to the GPU raise;
     only an explicit device="cpu" runs the plain path."""

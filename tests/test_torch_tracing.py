@@ -3,9 +3,10 @@ CPU, with the demo head over a tiny encoder: off, nothing is dispatched or
 counted; on, every ``predict*`` call opens ``estimator.request`` around
 ``inputs``, ``forward`` and ``decode``, and an update opens ``train.step``
 around each microbatch's ``forward``, ``loss`` and ``backward``, then
-``optimizer`` and ``metrics``; ``decode_calls``, ``ctc_calls`` and
-``host_reads`` count what the code says; outputs are bit-equal either way,
-remat included; and ``StepProfiler``'s traces carry the spans."""
+``optimizer`` and ``metrics``; ``decode_calls``, ``decode_heads``,
+``ctc_calls`` and ``host_reads`` count what the code says; outputs are
+bit-equal either way, remat included; and ``StepProfiler``'s traces carry
+the spans."""
 
 import contextlib
 import json
@@ -54,7 +55,8 @@ def batch():
 
 
 def _heads(estimator):
-    """Three four-class attribute heads (one stacked beam search) and the phone head."""
+    """Three four-class attribute heads (one stacked greedy call or beam
+    search) and the phone head."""
     return (*[node.name for node in estimator.model.plan.nodes][:3], "phone")
 
 
@@ -122,8 +124,10 @@ def test_a_request_encloses_inputs_forward_and_decode(estimator, batch, kind):
     request, *parts = events
     assert all(_inside(part, request) for part in parts)
     assert all(earlier[2] <= later[1] for earlier, later in zip(parts, parts[1:]))
-    decoded = {"predict": 0, "predict_decoded": len(_heads(estimator)), "predict_beam_decoded": 1}[kind]
+    # Greedy makes a call a class count: one for the attribute heads, one for phone.
+    decoded = {"predict": 0, "predict_decoded": 2, "predict_beam_decoded": 1}[kind]
     assert counts.get("decode_calls", 0) == decoded
+    assert counts.get("decode_heads", 0) == (0 if kind == "predict" else len(_heads(estimator)))
 
 
 @pytest.mark.parametrize("kind", ["predict_decoded", "predict_beam_decoded"])
