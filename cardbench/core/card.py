@@ -4,36 +4,18 @@ The port's kernel wrappers count their launches (``.launches``); a run reads
 the counters around its window and holds them to what the cell's shapes
 ask for. ``TwinsForbidden`` replaces the plain twins of the kernels with
 functions that raise while the window runs, so that a twin that ran on the
-card fails the run."""
+card fails the run. Each kernel's counter and twins are in its own
+``work/<kernel>.py`` (``registry.kernels``)."""
 
 from __future__ import annotations
 
+import importlib
 import subprocess
-import sys
 from typing import Dict
 
 import torch
 
-#: (module, attribute) of each counted launch wrapper, by kernel.
-COUNTERS = {
-    "K1": ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_attention"),
-    "K2": ("allophant_tpu_torch.ops.frame_encoder", "fused_frame_conv"),
-    "K3": ("allophant_tpu_torch.ops.beam_kernel", "beam_search_cuda"),
-    "K4": ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_attention_backward"),
-    "K5": ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_dropout_attention"),
-    "backtrace": ("allophant_tpu_torch.ops.beam_kernel", "backtrace_cuda"),
-}
-
-#: The port's plain twins of the kernels on the timed paths.
-TWINS = (
-    ("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot"),
-    ("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot_dropout"),
-    ("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot_backward"),
-    ("allophant_tpu_torch.ops.oneshot_attention", "reference_dropout_mask_bits"),
-    ("allophant_tpu_torch.ops.frame_encoder", "reference_frame_conv"),
-    ("allophant_tpu_torch.ops.decode", "beam_search_padded"),
-    ("allophant_tpu_torch.ops.decode", "backtrace_beams_device"),
-)
+from cardbench.core import registry
 
 
 class NoCard(RuntimeError):
@@ -60,9 +42,11 @@ def describe() -> str:
 
 
 def counters() -> Dict[str, int]:
+    """Each kernel's launches so far, by its ``KERNEL`` name."""
     values = {}
-    for name, (module, attribute) in COUNTERS.items():
-        values[name] = int(getattr(getattr(sys.modules[module], attribute), "launches"))
+    for kernel in registry.kernels():
+        module, attribute = kernel.COUNTER
+        values[kernel.KERNEL] = int(getattr(importlib.import_module(module), attribute).launches)
     return values
 
 
@@ -71,19 +55,25 @@ def counted_since(before: Dict[str, int]) -> Dict[str, int]:
     return {name: now[name] - before[name] for name in now}
 
 
+def launch_gap(launches: Dict[str, int], expected: Dict[str, int]) -> int:
+    """How far the counted launches lie from what the cell's shapes ask
+    for, over every kernel: one that ``expected`` does not name is expected
+    0 times."""
+    return sum(abs(launches.get(name, 0) - expected.get(name, 0)) for name in {*launches, *expected})
+
+
 class TwinFault(RuntimeError):
     pass
 
 
 class TwinsForbidden:
     def __enter__(self):
-        import importlib
-
         self.saved = []
-        for module_name, attribute in TWINS:
-            module = importlib.import_module(module_name)
-            self.saved.append((module, attribute, getattr(module, attribute)))
-            setattr(module, attribute, self._forbidden(attribute))
+        for kernel in registry.kernels():
+            for module_name, attribute in getattr(kernel, "TWINS", ()):
+                module = importlib.import_module(module_name)
+                self.saved.append((module, attribute, getattr(module, attribute)))
+                setattr(module, attribute, self._forbidden(attribute))
         return self
 
     @staticmethod

@@ -4,21 +4,16 @@ benchmark's weights."""
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
-from cardbench.core import weights
+from cardbench.core import registry, weights
 from cardbench.reference.model import ReferenceAllophant
 
 
 def architecture(config: dict):
-    from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
-
-    names = {field.name for field in dataclasses.fields(Wav2Vec2Architecture)}
-    values = {key: tuple(value) if isinstance(value, list) else value for key, value in config["architecture"].items() if key in names}
-    return Wav2Vec2Architecture(**values)
+    """The port's architecture object of the configuration's encoder."""
+    return registry.encoder(config["encoder"]).port_architecture(config["architecture"])
 
 
 def check_head(model, head: dict) -> None:
@@ -68,7 +63,7 @@ def precision_departures(config: dict) -> list:
 
 
 def reference_shapes(config: dict, head: dict):
-    return ReferenceAllophant(config["architecture"], head, config["training"], device="meta").shapes()
+    return ReferenceAllophant(config, head, device="meta").shapes()
 
 
 def build(config: dict, head: dict, seed: int, device, training: bool):
@@ -93,7 +88,5 @@ def build(config: dict, head: dict, seed: int, device, training: bool):
 
 
 def frame_lengths(config: dict, lengths) -> np.ndarray:
-    lengths = np.asarray(lengths, dtype=np.int64)
-    for kernel, stride in zip(config["architecture"]["conv_kernel"], config["architecture"]["conv_stride"]):
-        lengths = (lengths - kernel) // stride + 1
-    return lengths
+    """Frames of utterances of ``lengths`` samples, by the configuration's encoder."""
+    return registry.encoder(config["encoder"]).frame_lengths(config["architecture"], lengths)

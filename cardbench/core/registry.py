@@ -1,10 +1,14 @@
-"""Finds what ``BENCHMARK.json`` names: a cell's configuration, its traffic
-mix and the generator kind the mix names, its task, and the readers of its
-per-layer metrics. Each is a file of its own under ``cardbench/``, found by
-name, so that a new cell, mix or metric is a new file and no edit."""
+"""Finds what ``BENCHMARK.json`` names: a cell's configuration, the encoder
+the configuration names (its reference and its port-facing file), its
+traffic mix and the generator kind the mix names, its task, the readers of
+its per-layer metrics, and every kernel's file under ``work/``. Each is a
+file of its own under ``cardbench/``, found by name, so that a new cell,
+mix or metric is a new file and no edit, and a new architecture or kernel
+is new files."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import sys
@@ -44,10 +48,28 @@ def cell(spec: dict, workload: str) -> dict:
 
 
 def config(spec: dict, name: str, root: Path = ROOT) -> dict:
+    """The configuration's file; raises unless it names an encoder whose two
+    files exist: its plain reference ``reference/encoders/<encoder>.py`` and
+    what the harness knows of it in the port, ``encoders/<encoder>.py``."""
     for entry in spec["configs"]:
         if entry["name"] == name:
-            return json.loads((root / entry["file"]).read_text())
+            value = json.loads((root / entry["file"]).read_text())
+            if "encoder" not in value:
+                raise KeyError(f"the configuration {name!r} names no encoder")
+            named = value["encoder"]
+            for path in (BENCH_DIR / "reference" / "encoders" / f"{named}.py", BENCH_DIR / "encoders" / f"{named}.py"):
+                if not path.is_file():
+                    raise FileNotFoundError(f"the configuration {name!r} names the encoder {named!r}: no {path}")
+            return value
     raise KeyError(f"no configuration {name!r} in BENCHMARK.json")
+
+
+def encoder(name: str) -> ModuleType:
+    """What the harness knows of encoder ``name`` in the port
+    (``encoders/<name>.py``): its architecture object, frame lengths,
+    FLOPs, the launches a request or microbatch makes and the widths of the
+    tests' tiny cells."""
+    return importlib.import_module(f"cardbench.encoders.{name}")
 
 
 def traffic(name: str) -> dict:
@@ -105,3 +127,23 @@ def per_layer(spec: dict, workload: str) -> Dict[str, ModuleType]:
                 BENCH_DIR / "metrics" / f"{entry['name']}.py", "cardbench_metric_" + entry["name"].replace(".", "_")
             )
     return readers
+
+
+def kernels() -> List[ModuleType]:
+    """Every kernel's file ``work/<kernel>.py`` (the modules of the package
+    ``cardbench.work``), by ``KERNEL``, its name in the launch counts. Each
+    holds ``COUNTER``, the (module, attribute) of the port's counted launch
+    wrapper, and may hold ``TWINS``, the port's plain twins that may not run
+    in the window, ``KERNEL_NAMES``, its names in a device trace, and its
+    work function. Files without ``KERNEL`` (``model_flops.py``) are not
+    kernels."""
+    from cardbench import work
+
+    found = []
+    for folder in work.__path__:
+        for path in sorted(Path(folder).glob("*.py")):
+            if not path.name.startswith("_"):
+                module = importlib.import_module(f"cardbench.work.{path.stem}")
+                if hasattr(module, "KERNEL"):
+                    found.append(module)
+    return sorted(found, key=lambda module: module.KERNEL)

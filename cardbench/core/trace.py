@@ -20,6 +20,8 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from cardbench.core import registry
+
 #: Kernel-name fragments -> group, first match wins (the port's profiling
 #: tools' grouping, with the training groups).
 GROUPS = (
@@ -210,3 +212,61 @@ class Trace:
             by_label[label] += (high - low) * 1e-6
         ordered = lambda values: [[name, seconds] for name, seconds in sorted(values.items(), key=lambda item: -item[1])[:top]]  # noqa: E731
         return {"device_ops": ordered(by_group), "idle_gaps": ordered(by_label)}
+
+
+def kernel_seconds(trace: Trace) -> Dict[str, float]:
+    """Device seconds of each kernel whose ``work/`` file names it in a trace
+    (``KERNEL_NAMES``), by its ``KERNEL`` name; 0 for one that did not run."""
+    return {
+        kernel.KERNEL: trace.device_us(trace.ops, kernel.KERNEL_NAMES) * 1e-6
+        for kernel in registry.kernels() if hasattr(kernel, "KERNEL_NAMES")
+    }
+
+
+def union_length(spans: Iterable[Tuple[float, float]]) -> float:
+    """Length of the union of the ``(start, end)`` intervals ``spans``."""
+    total, reach = 0.0, None
+    for start, end in sorted(spans):
+        if reach is None or start >= reach:
+            total += end - start
+            reach = end
+        elif end > reach:
+            total += end - reach
+            reach = end
+    return total
+
+
+def device_profiler():
+    """A profiler of the device alone (CUDA activity, no host events): it
+    records every kernel, copy and fill, and reads them in memory, so a
+    whole window can run under it with no trace written."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def _is_device_operation(event) -> bool:
+    """A kernel, copy or fill among a profiler's events (by the event's
+    activity type where this PyTorch gives it, else by its device)."""
+    if hasattr(event, "activity_type"):
+        return event.activity_type() in _DEVICE_CATEGORIES
+    return str(event.device_type()).endswith("CUDA") and not event.is_user_annotation()
+
+
+def profiled_device_seconds(profiler, wall_s: float) -> Tuple[float, int]:
+    """(seconds in which a device operation ran, the operations) over what
+    ``profiler`` recorded. Raises where the recorded operations cover less
+    than 90% of ``wall_s``, the wall time profiled: the profiler stops
+    recording when its buffers fill, and a trace cut short would read too
+    little device time."""
+    spans = [
+        (event.start_ns(), event.start_ns() + event.duration_ns())
+        for event in profiler.profiler.kineto_results.events()
+        if _is_device_operation(event)
+    ]
+    if not spans:
+        raise RuntimeError("the device profiler recorded no device operation")
+    covered = (max(end for _start, end in spans) - min(start for start, _end in spans)) * 1e-9
+    if covered < 0.9 * wall_s:
+        raise RuntimeError(f"the device profiler recorded {covered:.3f} s of a {wall_s:.3f} s window: its trace was cut short")
+    return union_length(spans) * 1e-9, len(spans)

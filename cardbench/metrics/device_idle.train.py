@@ -3,7 +3,7 @@ time of the traced stretch of one training update."""
 
 LAYER = "device"
 UNIT = "%"
-MOVES = "train_audio_s_per_s"
+MOVES = "train_device_ms_per_padded_s"
 SOURCE = "device_trace"
 
 

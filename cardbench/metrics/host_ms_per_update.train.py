@@ -4,7 +4,7 @@ the untraced window's updates."""
 
 LAYER = "training loop"
 UNIT = "ms"
-MOVES = "train_audio_s_per_s"
+MOVES = "train_device_ms_per_padded_s"
 SOURCE = "host_clock"
 
 

@@ -8,7 +8,7 @@ from cardbench.work import k5
 
 LAYER = "kernels"
 UNIT = "%"
-MOVES = "train_audio_s_per_s"
+MOVES = "train_device_ms_per_padded_s"
 SOURCE = "device_trace"
 
 

@@ -7,7 +7,7 @@ from cardbench.core import peaks
 
 LAYER = "device, whole request or update"
 UNIT = "%"
-MOVES = "train_audio_s_per_s"
+MOVES = "train_device_ms_per_padded_s"
 SOURCE = "host_clock"
 
 

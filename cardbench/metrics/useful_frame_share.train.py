@@ -3,7 +3,7 @@ in the untraced window."""
 
 LAYER = "training loop"
 UNIT = "%"
-MOVES = "train_audio_s_per_s"
+MOVES = "train_device_ms_per_padded_s"
 SOURCE = "program_counter"
 
 

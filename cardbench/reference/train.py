@@ -18,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from cardbench.reference.dropout import DropoutDraws
-from cardbench.reference.model import Numerics, ReferenceAllophant, Sites
+from cardbench.reference.layers import Sites
+from cardbench.reference.model import Numerics, ReferenceAllophant
 
 
 def learning_rate(schedule: dict, model_size: int, count: int) -> float:

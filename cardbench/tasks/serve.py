@@ -29,7 +29,7 @@ import torch
 
 from cardbench.core import card, port, registry
 from cardbench.core.context import Check, Context, Result
-from cardbench.core.trace import ModuleSpans, Trace
+from cardbench.core.trace import ModuleSpans, Trace, kernel_seconds
 from cardbench.core import weights as weights_module
 from cardbench.reference import beam as reference_beam
 from cardbench.reference import judge
@@ -187,7 +187,7 @@ def run(context: Context) -> Result:
 
     parts = config["precision_parts"]
     flops = model_flops.total_flops(
-        config["architecture"], head["plan"], lengths_done, parts["encoder"],
+        config, head["plan"], lengths_done, parts["encoder"],
         "tf32" if parts["float32_matmul"] == "high" else "float32", training=False,
     )
     readings: Dict = {
@@ -196,10 +196,11 @@ def run(context: Context) -> Result:
     }
 
     finished = totals["requests"]
-    expected = {"K1": layers * finished, "K2": finished}
+    per_request = registry.encoder(config["encoder"]).serve_launches(config["architecture"])
+    expected = {name: count * finished for name, count in per_request.items()}
     if server.beam_width is not None:
         expected["K3"] = expected["backtrace"] = groups * finished
-    launch_gap = sum(abs(launches[name] - count) for name, count in expected.items()) if on_card else 0
+    launch_gap = card.launch_gap(launches, expected) if on_card else 0
     print("cardbench launches: " + ", ".join(f"{name} {launches[name]} (expected {expected.get(name, 0)})" for name in launches), flush=True)
 
     busy_s = window_s = breakdown = None
@@ -282,8 +283,8 @@ def _traced_stretch(context: Context, server: Server, stream, model, layers: int
         ends = [span_end for span_start, span_end in head if low <= span_start <= high]
         if ends:
             after_head.append((max(ends), high))
-    from cardbench.work import k1, k3
-
+    kernel_s = kernel_seconds(trace)
+    context.log(f"device seconds by kernel in the traced stretch: {kernel_s}")
     readings = {
         "wall_s": (end - start) * 1e-6,
         "busy_s": busy * 1e-6,
@@ -293,8 +294,9 @@ def _traced_stretch(context: Context, server: Server, stream, model, layers: int
         "encoder_s": trace.device_us(trace.launched_in(encoder)) * 1e-6,
         "head_s": trace.device_us(trace.launched_in(head)) * 1e-6,
         "decode_s": trace.device_us(trace.launched_in(after_head)) * 1e-6,
-        "k1_s": trace.device_us(trace.ops, k1.KERNEL_NAMES) * 1e-6,
-        "k3_s": trace.device_us(trace.ops, k3.KERNEL_NAMES) * 1e-6,
+        "kernel_s": kernel_s,
+        "k1_s": kernel_s["K1"],
+        "k3_s": kernel_s["K3"],
         "beam_width": server.beam_width,
         "heads_by_classes": _heads_by_classes(context.head["plan"]),
     }
@@ -324,7 +326,7 @@ def reference_log_probs(context: Context, model: ReferenceAllophant, request, nu
 
 def build_reference(context: Context, device) -> ReferenceAllophant:
     config, head = context.config, context.head
-    model = ReferenceAllophant(config["architecture"], head, config["training"], device=device)
+    model = ReferenceAllophant(config, head, device=device)
     drawn = weights_module.draw(model.shapes(), context.seed, device, head["static"])
     weights_module.load_into(model, drawn)
     return model.eval()

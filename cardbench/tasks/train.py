@@ -8,7 +8,14 @@ Set-up builds the model and its optimizer and runs the first
 ``check.steps`` updates through the window's own call: they are the
 warm-up, and the reference follows them. The window then runs whole
 updates until ``--seconds`` have passed; its rate is the real audio of every
-update it completed over the time to the end of the last."""
+update it completed over the time to the end of the last. With ``--trace 0``
+on the card the window runs under a profiler of the device alone, whose
+union of device operations over the audio seconds of the stacked groups,
+padding included, is the end-to-end ``train_device_ms_per_padded_s``: the
+device's time is proportional to the stacked shapes, so it reads the same
+whichever groups the host's pace fits into the window. With ``--trace 1``
+the window runs unprofiled, and its rate is the per-layer
+``wall_audio_s_per_s.train``."""
 
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 
 from cardbench.core import card, port, registry
 from cardbench.core.context import Check, Context, Result
-from cardbench.core.trace import Trace
+from cardbench.core.trace import Trace, device_profiler, kernel_seconds, profiled_device_seconds
 from cardbench.reference import judge
 from cardbench.reference.model import ReferenceAllophant
 from cardbench.reference.numerics import full_float32
@@ -175,14 +182,15 @@ def run(context: Context) -> Result:
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     before = card.counters()
-    totals = {"real_samples": 0, "real_frames": 0, "padded_frames": 0, "updates": 0, "host_s": 0.0}
+    totals = {"real_samples": 0, "padded_samples": 0, "real_frames": 0, "padded_frames": 0, "updates": 0, "host_s": 0.0}
     lengths_done: List[int] = []
     attempted = failed = 0
     index = check_steps
     start = time.perf_counter()
     deadline = start + context.seconds
     last = start
-    with card.TwinsForbidden() if on_card else contextlib.nullcontext():
+    profiler = device_profiler() if on_card and not context.trace else contextlib.nullcontext()
+    with card.TwinsForbidden() if on_card else contextlib.nullcontext(), profiler:
         while time.perf_counter() < deadline:
             group = next_group()
             attempted += 1
@@ -199,12 +207,17 @@ def run(context: Context) -> Result:
             index += 1
             frames = _group_frames(config, stacked)
             totals["real_samples"] += sum(request.real_samples for request in group)
+            totals["padded_samples"] += int(stacked["audio"].size)
             totals["real_frames"] += frames["real"]
             totals["padded_frames"] += frames["padded"]
             totals["updates"] += 1
             totals["host_s"] += host_s
             lengths_done.extend(int(value) for request in group for value in request.lengths)
     wall = last - start
+    device_s = None
+    if on_card and not context.trace:
+        device_s, operations = profiled_device_seconds(profiler, wall)
+        context.log(f"window: {operations} device operations, {device_s:.6f} s of device time in {wall:.6f} s")
     launches = card.counted_since(before)
     departures = port.precision_departures(config)
     if departures:
@@ -212,22 +225,22 @@ def run(context: Context) -> Result:
     window_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
 
     audio_s = totals["real_samples"] / traffic["sample_rate"]
-    end_to_end = {
-        "setup_s": setup_s,
-        "train_audio_s_per_s": audio_s / wall if wall > 0 else 0.0,
-        "train_peak_gib": window_peak / 2**30,
-    }
+    context.log(f"window: {totals['updates']} updates, {audio_s:.3f} audio-s in {wall:.6f} s")
+    end_to_end = {"setup_s": setup_s, "train_peak_gib": window_peak / 2**30}
+    if device_s is not None and totals["padded_samples"]:
+        end_to_end["train_device_ms_per_padded_s"] = 1e3 * device_s / (totals["padded_samples"] / traffic["sample_rate"])
     from cardbench.work import model_flops
 
     parts = config["precision_parts"]
     flops = model_flops.total_flops(
-        config["architecture"], head["plan"], lengths_done, parts["encoder"],
+        config, head["plan"], lengths_done, parts["encoder"],
         "tf32" if parts["float32_matmul"] == "high" else "float32", training=True,
     )
     readings: Dict = {"window": {"wall_s": wall, "audio_s": audio_s, "flops": flops, **totals}, "config": config}
     microbatches = totals["updates"] * accumulation
-    expected = {"K2": microbatches, "K4": layers * microbatches, "K5": layers * microbatches}
-    launch_gap = sum(abs(launches[name] - count) for name, count in expected.items()) if on_card else 0
+    per_microbatch = registry.encoder(config["encoder"]).train_launches(config["architecture"])
+    expected = {name: count * microbatches for name, count in per_microbatch.items()}
+    launch_gap = card.launch_gap(launches, expected) if on_card else 0
     print("cardbench launches: " + ", ".join(f"{name} {launches[name]} (expected {expected.get(name, 0)})" for name in launches), flush=True)
 
     busy_s = window_s = breakdown = None
@@ -267,16 +280,17 @@ def _traced_update(context: Context, trainer: Trainer, group, index: int, layers
     path.unlink()
     start, end = trace.window("cardbench.stretch")
     busy = trace.busy_us(start, end)
-    from cardbench.work import k4, k5
-
     frames = _group_frames(context.config, stacked)
+    kernel_s = kernel_seconds(trace)
+    context.log(f"device seconds by kernel in the traced stretch: {kernel_s}")
     readings = {
         "wall_s": (end - start) * 1e-6,
         "busy_s": busy * 1e-6,
         "layers": layers,
         "microbatches": frames["microbatches"],
-        "k4_s": trace.device_us(trace.ops, k4.KERNEL_NAMES) * 1e-6,
-        "k5_s": trace.device_us(trace.ops, k5.KERNEL_NAMES) * 1e-6,
+        "kernel_s": kernel_s,
+        "k4_s": kernel_s["K4"],
+        "k5_s": kernel_s["K5"],
     }
     return busy * 1e-6, (end - start) * 1e-6, trace.breakdown(start, end), readings
 
@@ -305,7 +319,7 @@ def reference_steps(context: Context, groups, initial: Dict[str, torch.Tensor], 
     from cardbench.reference.model import Numerics
 
     config, head = context.config, context.head
-    model = ReferenceAllophant(config["architecture"], head, config["training"], device=device)
+    model = ReferenceAllophant(config, head, device=device)
     weights_module.load_into(model, {name: value.to(device) for name, value in initial.items()})
     trainer = ReferenceTrainer(model, config, numerics or Numerics())
     dtypes = (_DTYPES[config["precision_parts"]["encoder"]], _DTYPES[config["precision_parts"]["head"]])

@@ -30,6 +30,8 @@ def test_the_harness_metrics_and_tasks_load_no_jax():
         "spec = registry.benchmark()\n"
         "[registry.per_layer(spec, cell['name']) for cell in spec['workloads']]\n"
         "[registry.task(task) for task in ('serve', 'train')]\n"
+        "[registry.encoder(registry.config(spec, entry['name'])['encoder']) for entry in spec['configs']]\n"
+        "from cardbench.core import card; card.counters()\n"
         "import cardbench.calibrate\n"
         "import allophant_tpu_torch.training.estimator, allophant_tpu_torch.training.train_step, allophant_tpu_torch.demo\n"
     )
@@ -42,14 +44,16 @@ def test_the_reference_loads_nothing_of_the_program():
     code = (
         "import sys; sys.path.insert(0, '.')\n"
         "import cardbench.reference.model, cardbench.reference.train, cardbench.reference.judge, cardbench.reference.beam\n"
-        "import cardbench.reference.dropout, cardbench.reference.numerics\n"
+        "import cardbench.reference.dropout, cardbench.reference.numerics, cardbench.reference.layers\n"
+        "import importlib, pathlib\n"
+        "[importlib.import_module('cardbench.reference.encoders.' + path.stem) for path in pathlib.Path('cardbench/reference/encoders').glob('*.py')]\n"
     )
     names = loaded_top_level(code)
     assert not names & (FORBIDDEN | {"allophant_tpu_torch"})
 
 
 def test_no_source_of_the_reference_imports_the_program():
-    for path in (BENCH / "reference").glob("*.py"):
+    for path in (BENCH / "reference").rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):

@@ -84,11 +84,12 @@ def test_a_synchronising_call_is_put_on_the_repo_line_that_made_it():
 #: workload -> (requests or updates of the stretch, the program's counters a
 #: unit in the tiny cell, spans and their counts a unit)
 TINY = {
-    # tiny_cells' ``trace_requests``; 37 classifiers and the phone layer, each
-    # decoded greedily.
+    # tiny_cells' ``trace_requests``; 37 classifiers and the phone layer
+    # decoded greedily, the heads of each class count in one call: the 36
+    # four-class heads, then phoneme and phone (40 classes).
     "xlsr300m-greedy-cv": (
         2,
-        {"decode_calls": 38},
+        {"decode_calls": 2, "decode_heads": 38},
         {"estimator.request": 1, "estimator.inputs": 1, "estimator.forward": 1, "estimator.decode": 1},
     ),
     # Two microbatches, a CTC call each for the 4- and the 40-class heads;

@@ -44,10 +44,15 @@ def test_tiny_cells_are_correct_at_float32(workload):
     checks = line["checks"]
     if "loss_gap" in checks:
         assert checks["loss_gap"]["value"] < 1e-5 and checks["first_grad_gap"]["value"] < 1e-4
+    elif "beam" in workload:
+        # The served search agrees with the reference's own search over the
+        # reference's log-probs; a best score lies at or below its
+        # hypothesis's likelihood, by the alignments the search pruned (the
+        # tiny model's near-uniform outputs prune some on every row).
+        assert abs(checks["beam_shortfall_nats"]["value"]) < 1e-3
+        assert checks["beam_gap_nats"]["value"] < 1e-3
     else:
-        names = ("beam_gap_nats", "beam_shortfall_nats") if "beam" in workload else ("greedy_gap_nats",)
-        for name in names:
-            assert abs(checks[name]["value"]) < 1e-3, name
+        assert abs(checks["greedy_gap_nats"]["value"]) < 1e-3
 
 
 def test_bottleneck_gap_is_zero_on_the_greedy_path_and_infinite_off_the_lattice():

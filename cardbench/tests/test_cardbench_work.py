@@ -45,7 +45,8 @@ def test_model_flops_by_hand():
     }
     plan = {"nodes": [{"projection_size": 3, "output_size": 3}, {"projection_size": 5, "output_size": 2, "has_composition": True}]}
     # 50 samples -> 9 frames after the first conv -> 4 frames.
-    serve = model_flops.utterance_flops(arch, plan, 50, "bfloat16", "float32", training=False)
+    config = {"encoder": "wav2vec2", "architecture": arch}
+    serve = model_flops.utterance_flops(config, plan, 50, "bfloat16", "float32", training=False)
     first = 2 * 9 * 1 * 4 * 10
     second = 2 * 4 * 4 * 4 * 2
     projection = 2 * 4 * 4 * 8
@@ -54,7 +55,7 @@ def test_model_flops_by_hand():
     head = 2 * 4 * 8 * 3 + 2 * 4 * 8 * 5 + 2 * 4 * 5 * 2
     assert serve["float32"] == first + head
     assert serve["bfloat16"] == second + projection + positional + layer
-    train = model_flops.utterance_flops(arch, plan, 50, "bfloat16", "float32", training=True)
+    train = model_flops.utterance_flops(config, plan, 50, "bfloat16", "float32", training=True)
     assert train["float32"] == first + 3 * head
     assert train["bfloat16"] == second + 2 * projection + 3 * (positional + layer)
 

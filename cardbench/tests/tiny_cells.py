@@ -1,7 +1,8 @@
 """Tiny versions of the benchmark's cells for the CPU tests: the cells'
-configurations at width 32 and depth 2, traffic of 0.2-0.7 s utterances, and
-the float32 preset, at which the port's plain twins and the reference agree
-to rounding."""
+configurations at their encoder's tiny widths (``TINY`` of
+``encoders/<encoder>.py``: width 32 and depth 2 for wav2vec2), traffic of
+0.2-0.7 s utterances, and the float32 preset, at which the port's plain
+twins and the reference agree to rounding."""
 
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ FURTHER = {
 
 def config(name: str, precision: str = "float32") -> dict:
     value = copy.deepcopy(registry.config(SPEC, name))
-    value["architecture"].update(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64, conv_dim=[16] * 7)
+    value["architecture"].update(copy.deepcopy(registry.encoder(value["encoder"]).TINY))
     value["precision"] = precision
     if precision == "float32":
         value["precision_parts"] = {"encoder": "float32", "head": "float32", "float32_matmul": "highest", "master_weights": "float32"}

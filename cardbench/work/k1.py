@@ -19,4 +19,7 @@ def launch_work(time: int, heads: int, head_dim: int, lengths: Sequence[int], it
     return float(bytes_moved), float(operations)
 
 
+KERNEL = "K1"
+COUNTER = ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_attention")
+TWINS = (("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot"),)
 KERNEL_NAMES = ("oneshot_attention_kernel", "oneshot_attention_mma_kernel")

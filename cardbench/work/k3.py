@@ -18,4 +18,7 @@ def launch_work(time: int, classes: int, beams: int, lengths: Sequence[int]) -> 
     return float(bytes_moved), float(steps * beams * classes * 8)
 
 
+KERNEL = "K3"
+COUNTER = ("allophant_tpu_torch.ops.beam_kernel", "beam_search_cuda")
+TWINS = (("allophant_tpu_torch.ops.decode", "beam_search_padded"),)
 KERNEL_NAMES = ("beam_search_kernel", "beam_search_warp_kernel", "beam_search_wide_kernel")

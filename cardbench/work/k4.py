@@ -17,6 +17,9 @@ def launch_work(time: int, heads: int, head_dim: int, lengths: Sequence[int], it
     return float(bytes_moved), float(operations)
 
 
+KERNEL = "K4"
+COUNTER = ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_attention_backward")
+TWINS = (("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot_backward"),)
 KERNEL_NAMES = (
     "attention_backward_query_kernel",
     "attention_backward_query_mma_kernel",

@@ -13,4 +13,11 @@ def launch_work(time: int, heads: int, head_dim: int, lengths: Sequence[int], it
     return k1.launch_work(time, heads, head_dim, lengths, item_bytes)
 
 
+KERNEL = "K5"
+COUNTER = ("allophant_tpu_torch.ops.oneshot_attention", "oneshot_dropout_attention")
+#: The twin of the forward with dropout, and of the mask it draws (K6's).
+TWINS = (
+    ("allophant_tpu_torch.ops.oneshot_attention", "reference_oneshot_dropout"),
+    ("allophant_tpu_torch.ops.oneshot_attention", "reference_dropout_mask_bits"),
+)
 KERNEL_NAMES = ("attention_dropout_kernel", "attention_dropout_mma_kernel")
