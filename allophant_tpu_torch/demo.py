@@ -26,6 +26,7 @@ import torch
 from allophant_tpu_torch.config import Architecture, Config
 from allophant_tpu_torch.device import resolve_device, set_float32_precision
 from allophant_tpu_torch.models.allophant import AllophantModel, attribute_graph_from_config, build_model
+from allophant_tpu_torch.models.w2v_bert import Wav2Vec2BertArchitecture
 from allophant_tpu_torch.models.wav2vec2 import Wav2Vec2Architecture
 from allophant_tpu_torch.phonetics.features import (
     Frame,
@@ -293,7 +294,12 @@ def flagship_config() -> Architecture:
     return Config.load(demo_config_dict()).nn
 
 
-def _flagship_build(architecture: Optional[Wav2Vec2Architecture], dtype, head_dtype, device, param_dtype=None, remat=False, mesh=None):
+def _flagship_build(
+    architecture: Optional[Wav2Vec2Architecture | Wav2Vec2BertArchitecture], dtype, head_dtype, device,
+    param_dtype=None, remat=False, mesh=None,
+):
+    """The demo head over the encoder of ``architecture`` (None: XLS-R 300M;
+    a ``Wav2Vec2BertArchitecture``: w2v-BERT 2.0), through ``build_model``."""
     config = Config.load(demo_config_dict())
     indexer = demo_indexer(config)
     return build_model(

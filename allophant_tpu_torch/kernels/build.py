@@ -24,7 +24,9 @@ from typing import Dict, Sequence
 PACKAGE_ROOT = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_ROOT / "csrc"
 BUILD_ROOT = PACKAGE_ROOT / "_build"
-KERNEL_NAMES = ("oneshot_attention", "attention_dropout", "attention_backward", "frame_encoder", "beam_search")
+KERNEL_NAMES = (
+    "oneshot_attention", "attention_dropout", "attention_backward", "frame_encoder", "beam_search", "relkey_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -81,6 +83,13 @@ _SIGNATURES = {
         "beam_search",
         "beam_search_forward",
         [_C_POINTER] * 5 + [ctypes.c_int] * 5 + [_C_POINTER] * 2,
+    ),
+    "relkey_attention": (
+        "relkey_attention",
+        "relkey_attention_forward",
+        [_C_POINTER] * 6
+        + [ctypes.c_int] * 6
+        + [_C_POINTER, ctypes.c_float, ctypes.c_float, _C_POINTER],
     ),
     "beam_search_workspace_bytes": ("beam_search", "beam_search_workspace_bytes", [ctypes.c_int] * 2, ctypes.c_longlong),
     "beam_backtrace": (

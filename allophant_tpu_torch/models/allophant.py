@@ -1,7 +1,8 @@
-"""Top-level Allophant model over either acoustic model, the wav2vec2 encoder
-or the from-scratch transformer (counterpart of
-``allophant_tpu/models/allophant.py``), and its builders from a configuration:
-``attribute_graph_from_config`` and ``build_model``."""
+"""Top-level Allophant model over an acoustic model (the wav2vec2 encoder or
+the from-scratch transformer, as in ``allophant_tpu/models/allophant.py``, or
+the w2v-BERT 2.0 encoder, which the JAX package does not have), and its
+builders from a configuration: ``attribute_graph_from_config`` and
+``build_model``."""
 
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from allophant_tpu_torch.models.projection import (
     build_projection_plan,
 )
 from allophant_tpu_torch.models.transformer import TransformerAcousticModel, TransformerArchitecture
+from allophant_tpu_torch.models.w2v_bert import Wav2Vec2BertArchitecture, Wav2Vec2BertModel
 from allophant_tpu_torch.models.wav2vec2 import REMAT_SAVE_NAMES_BASE, Wav2Vec2Architecture, Wav2Vec2Model
 from allophant_tpu_torch.phonetics.attribute_graph import AttributeGraph, AttributeNode, TimeLayerConfig
 from allophant_tpu_torch.phonetics.features import PhoneticAttributeIndexer
@@ -52,7 +54,8 @@ def needs_intermediate_taps(plan: ProjectionPlan) -> bool:
 
 
 class AllophantModel(nn.Module):
-    """Acoustic model (the wav2vec2 encoder of a ``Wav2Vec2Architecture``, or
+    """Acoustic model (the wav2vec2 encoder of a ``Wav2Vec2Architecture``, the
+    w2v-BERT encoder of a ``Wav2Vec2BertArchitecture``, which serves only, or
     the transformer of a ``TransformerArchitecture``) + hierarchical projection.
 
     ``head_dtype`` (None = ``dtype``) is the compute dtype of the classifier
@@ -72,7 +75,7 @@ class AllophantModel(nn.Module):
 
     def __init__(
         self,
-        architecture: Wav2Vec2Architecture | TransformerArchitecture,
+        architecture: Wav2Vec2Architecture | Wav2Vec2BertArchitecture | TransformerArchitecture,
         plan: ProjectionPlan,
         dtype: torch.dtype = torch.float32,
         head_dtype: Optional[torch.dtype] = None,
@@ -93,6 +96,12 @@ class AllophantModel(nn.Module):
             self.acoustic_model = Wav2Vec2Model(
                 architecture, dtype, needs_intermediate_taps(plan), device, param_dtype, frozen_prefix,
                 remat, remat_save_names, mesh,
+            )
+        elif isinstance(architecture, Wav2Vec2BertArchitecture):
+            if remat or (mesh is not None and mesh.model_parallel > 1):
+                raise ValueError("the w2v-BERT encoder serves on one device: no remat, no tensor parallelism")
+            self.acoustic_model = Wav2Vec2BertModel(
+                architecture, dtype, needs_intermediate_taps(plan), device, param_dtype
             )
         elif isinstance(architecture, TransformerArchitecture):
             self.acoustic_model = TransformerAcousticModel(architecture, dtype, device, param_dtype, mesh)
@@ -167,7 +176,7 @@ def build_model(
     sample_rate: int,
     attribute_graph: AttributeGraph,
     attribute_indexer: Optional[PhoneticAttributeIndexer] = None,
-    wav2vec2_architecture: Optional[Wav2Vec2Architecture] = None,
+    wav2vec2_architecture: Optional[Wav2Vec2Architecture | Wav2Vec2BertArchitecture] = None,
     dtype: torch.dtype = torch.float32,
     head_dtype: Optional[torch.dtype] = None,
     device=None,
@@ -179,7 +188,8 @@ def build_model(
     """The Allophant model of an ``nn`` configuration (reference :988-1025),
     on ``device``, with zero weights and the plan's static tables in place.
     A wav2vec2-pretrained encoder is XLS-R 300M unless
-    ``wav2vec2_architecture`` replaces it, cut above the highest "OUTPUT_<i>"
+    ``wav2vec2_architecture`` replaces it (another wav2vec2, or w2v-BERT 2.0
+    by its ``Wav2Vec2BertArchitecture``), cut above the highest "OUTPUT_<i>"
     tap; a pre-LN transformer reads ``feature_size`` features a frame.
     ``mesh`` shards the model over its model axis (``AllophantModel``)."""
     layer_config = architecture.acoustic_model

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --multi-gpu   # the build and phase 18 alone
+    python3 chip_smoke.py --w2v-bert    # the build, K7's kernel phase and w2v-BERT's serving phase
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
@@ -38,6 +39,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      Head offsets: K5, K4 and K6 over heads 8-15 of 16 (total_heads 16,
      head_offset 8) bit-equal to those heads of the 16-head call, in bf16
      and f32, at the training shape and at heads of 192 (the chunked route);
+     Relative-key attention (K7, w2v-BERT 2.0's 16 heads of 64, distances
+     -64 .. 8) against its twin in bf16 at the serving shape (strided q/k/v),
+     at T = 100 (both clamps), 2, 37, 512 (the tile edges) and 2048, with
+     a zero-length and a ragged row, bit-equal over two calls and, with a
+     zero table, equal to K1; kernel, twin and library times
+     (scaled_dot_product_attention given the materialised [B, H, T, T] bias);
      Head widths: K1, K5 and K4 at 12, 20, 32, 80, 120, 128, 136, 192 and
      256 in bf16 and f32 against their twins (K5 and K4 bit-equal over two
      calls; 12 and 20 zero-padded to 16 and 24, above 128 the chunked
@@ -51,6 +58,12 @@ Phases, each printing its own lines; any failure exits non-zero:
      Estimator.predict_beam_decoded (all 38 heads, beam width 4), launch
      counters read around each; the first request's log-probs from the card
      are searched on the CPU, and the grids must be equal;
+     w2v-BERT serve: the full-width w2v-BERT 2.0 flagship answers the same
+     three requests, each shape's first call capturing its Conformer layers
+     as a CUDA graph (the memory it reserved printed) and the second
+     replaying it: each graph recording K7 24 times, a replay's encoder
+     output bit-equal to the eager layer stack's, K7 24 times a request,
+     twins forbidden, host and wall ms of the stack eager and replayed;
   6. wide heads: the flagship head on a 2-layer encoder of XLS-R 1B's width
      (16 heads of 80) answers one greedy request and the same request at
      beam widths 17, 32, 64 and 100, launch counters read around each; each
@@ -573,6 +586,188 @@ def phase_attention(serve_lengths, serve_time) -> dict:
                     "shape": f"q/k/v [{batch}, {time_steps}, {heads * head_dim}] {dtype_name}",
                 }
     return entry
+
+
+def relkey_work(time_steps, heads, head_dim, positions, lengths, item_bytes):
+    """K7's bytes (K1's, and the table once) and operations (K1's, and each
+    query's product with the table) over the keys each row needs."""
+    bytes_moved, operations = attention_work(len(lengths), time_steps, heads, head_dim, lengths, item_bytes)
+    queries = sum(int(length) if int(length) > 0 else time_steps for length in lengths.tolist())
+    return bytes_moved + positions * head_dim * item_bytes, operations + 2 * positions * heads * head_dim * queries
+
+
+def phase_relkey_attention(serve_lengths, serve_time) -> dict:
+    """K7 (relative-key attention, w2v-BERT 2.0's 16 heads of 64, distances
+    -64 .. 8) against its twin in bf16: at the serving shape (strided q/k/v of
+    the fused projection), at T = 100 (both clamps inside one row) with a
+    zero-length and a ragged row, at T = 2 and 37 (one ragged tile), at T =
+    512 with rows ending on each side of the 64-key tile edges, and at 2048;
+    each bit-equal over two calls. With a zero table it computes K1 (the
+    relative term adds an exact 0 before K1's scale): held to K1 within the
+    twin's per-element scale limit, and whether the two are bit-equal printed. Times at the
+    serving shape: kernel, twin, and scaled_dot_product_attention given the
+    relative term materialised as a [B, H, T, T] bf16 bias (not counted: the
+    time to form it); returns the JSON entry."""
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+    from allophant_tpu_torch.ops.relkey_attention import reference_relkey_attention, relative_distances, relkey_attention
+
+    batch, heads, head_dim, left, right = 8, 16, 64, 64, 8
+    scale = head_dim**-0.5
+    generator = torch.Generator(device="cuda").manual_seed(73)
+    table = (torch.randn(left + right + 1, head_dim, generator=generator, device="cuda") * head_dim**-0.5).to(torch.bfloat16)
+    rms_tolerance, rtol, scale_tolerance = KERNEL_LIMITS[torch.bfloat16]
+    cases = (
+        [(serve_time, list(serve_lengths), "serve"), (100, [0, 77] + [100] * (batch - 2), "ragged")]
+        + [(2, [0, 1] + [2] * (batch - 2), "short"), (37, [0, 5] + [37] * (batch - 2), "short")]
+        + [(512, [0, 1, 63, 64, 65, 128, 512 - 123, 512], "tile-skip"), (2048, [2048, 1500] + [0] * 6, "long")]
+    )
+    entry = None
+    for time_steps, row_lengths, label in cases:
+        q, k, v, bias, lengths = attention_inputs(row_lengths, time_steps, heads, head_dim, torch.bfloat16, label == "serve")
+        got = relkey_attention(q, k, v, bias, table, scale, heads, left, right)
+        again = relkey_attention(q, k, v, bias, table, scale, heads, left, right)
+        expected = torch.cat([
+            reference_relkey_attention(q[i : i + 1], k[i : i + 1], v[i : i + 1], bias[i : i + 1], table, scale, heads, left, right)
+            for i in range(batch)
+        ])
+        plain = relkey_attention(q, k, v, bias, torch.zeros_like(table), scale, heads, left, right)
+        k1 = oneshot_attention(q, k, v, bias, scale, heads)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"relkey_attention T={time_steps}: two calls differ")
+        from_k1 = (plain.float() - k1.float()).abs().max().item()
+        check(from_k1 <= scale_tolerance * k1.float().square().mean().sqrt().item(), f"relkey_attention T={time_steps}: a zero table is not K1 ({from_k1})")
+        valid = torch.arange(time_steps, device="cuda")[None] < lengths[:, None]
+        difference = (got.float() - expected.float())[valid].abs()
+        twin = expected.float()[valid]
+        rms = twin.square().mean().sqrt().item()
+        rms_ratio = difference.square().mean().sqrt().item() / rms
+        worst = (difference / (rtol * twin.abs() + scale_tolerance * rms)).max().item()
+        finite = bool(torch.isfinite(got).all().item())
+        print(
+            f"kernel relkey_attention bfloat16 B={batch} T={time_steps} H={heads} hd={head_dim} distances -{left}..{right}"
+            f" {'strided' if label == 'serve' else 'contiguous'} lengths={lengths.tolist()}:"
+            f" max_abs_err {difference.max().item():.3e}, twin rms {rms:.3e}, error rms / twin rms {rms_ratio:.3e}"
+            f" (tolerance {rms_tolerance:.0e}), worst share of the per-element limit {worst:.3f}, finite {finite},"
+            f" two calls bit-equal; with a zero table {'bit-equal to K1' if from_k1 == 0 else f'{from_k1:.3e} from K1'}",
+            flush=True,
+        )
+        check(finite and rms_ratio <= rms_tolerance and worst <= 1.0, f"relkey_attention T={time_steps} disagrees: rms ratio {rms_ratio}, share {worst}")
+        if label != "serve":
+            continue
+        kernel_readings = [cuda_ms(lambda: relkey_attention(q, k, v, bias, table, scale, heads, left, right), 20) for _ in range(3)]
+        kernel_ms = float(np.median(kernel_readings))
+        plain_ms = cuda_ms(lambda: reference_relkey_attention(q, k, v, bias, table, scale, heads, left, right), 5)
+        shape4 = (batch, time_steps, heads, head_dim)
+        q4, k4, v4 = (tensor.view(shape4).transpose(1, 2) for tensor in (q, k, v))
+        distances = relative_distances(time_steps, left, right, "cuda")
+        relative = torch.einsum("bhld,lrd->bhlr", q4.float(), table.float()[distances]) * scale
+        mask = (relative + bias[:, None, None, :]).to(torch.bfloat16)
+        library_ms, backend, library_readings = pinned_library_ms(
+            lambda: lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask), 20
+        )
+        bytes_moved, operations = relkey_work(time_steps, heads, head_dim, left + right + 1, lengths, 2)
+        bound, bound_by = bound_ms(bytes_moved, operations, "bfloat16")
+        print(
+            f"time relkey_attention bfloat16 B={batch} T={time_steps}: kernel {kernel_ms:.4f} ms"
+            f" (readings {readings_text(kernel_readings)}), twin {plain_ms:.4f} ms,"
+            f" scaled_dot_product_attention [{backend}] with the [B, H, T, T] bias {library_ms:.4f} ms"
+            f" (readings {readings_text(library_readings)}), bound {bound:.4f} ms ({bound_by})",
+            flush=True,
+        )
+        entry = {
+            "name": "relkey_attention",
+            "route": "cuda",
+            "source": "allophant_tpu_torch/csrc/relkey_attention.cu",
+            "replaces": "none: w2v-BERT's relative-key attention (transformers Wav2Vec2BertSelfAttention)",
+            "max_abs_err": difference.max().item(),
+            "ms": kernel_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "shape": f"q/k/v [{batch}, {time_steps}, {heads * head_dim}] bfloat16, table [{left + right + 1}, {head_dim}]",
+        }
+    return entry
+
+
+def phase_w2v_bert_serve(results: dict) -> None:
+    """The full-width w2v-BERT 2.0 flagship ("mixed", seeded weights) answers
+    the serving requests: ``predict`` first, whose Conformer layers run
+    eagerly and capture the request's shape as a CUDA graph (the device
+    memory the capture reserved, and the call's ms, are printed), then
+    greedily through Estimator.predict_decoded, which replays the graph.
+    Each graph records K7 once a layer; the replayed request counts K7 24
+    times and no K1 or K2, the twins forbidden; the replay's encoder output
+    is bit-equal to the eager layer stack's (``encoder._run``) on the same
+    inputs. Host (enqueue) and wall ms of the layer stack eager and
+    replayed."""
+    from allophant_tpu_torch.demo import build_flagship
+    from allophant_tpu_torch.models.w2v_bert import Wav2Vec2BertArchitecture
+    from allophant_tpu_torch.ops.frame_encoder import fused_frame_conv
+    from allophant_tpu_torch.ops.oneshot_attention import oneshot_attention
+    from allophant_tpu_torch.ops.relkey_attention import relkey_attention
+
+    estimator = build_flagship(seed=0, architecture=Wav2Vec2BertArchitecture(), precision="mixed", device="cuda")
+    encoder = estimator.model.acoustic_model.encoder
+    layers = len(encoder.layers)
+    counters = {"relkey_attention": relkey_attention, "oneshot_attention": oneshot_attention, "frame_encoder": fused_frame_conv}
+    seen = {}
+    hook = encoder.register_forward_hook(lambda _module, args, output: seen.update(args=args, output=output))
+    for name, request in serving_requests():
+        torch.cuda.synchronize()
+        graphs, kept = len(encoder._captured), encoder._graph_bytes
+        start = time.perf_counter()
+        batch, kwargs, _predictions, heads, widths = request_log_probs(estimator, name, request)
+        capture_ms = (time.perf_counter() - start) * 1e3
+        args = seen["args"]
+        shape = (tuple(args[0].shape), args[0].dtype)
+        check(shape in encoder._captured and len(encoder._captured) == graphs + 1, f"w2v-BERT {name!r}: predict captured no graph of {shape}")
+        kept = encoder._graph_bytes - kept
+        recorded = encoder._captured[shape].launches
+        check(recorded == layers, f"w2v-BERT {name!r}: the graph recorded {recorded} K7 launches, not {layers}")
+        before = {kernel: counter.launches for kernel, counter in counters.items()}
+        with TwinsForbidden():
+            grid, frames = estimator.predict_decoded(batch, heads=heads, **kwargs)
+            grid = grid.cpu()
+        launches = {kernel: counter.launches - before[kernel] for kernel, counter in counters.items()}
+        check(launches == {"relkey_attention": layers, "oneshot_attention": 0, "frame_encoder": 0}, f"w2v-BERT {name!r} replayed: launches {launches}")
+        results["relkey_attention"] += launches["relkey_attention"]
+        check_grid(grid, frames, heads, widths)
+        timings = {}
+        with torch.inference_mode():
+            replayed = seen["output"][-1]
+            inputs = encoder.inputs(*args)
+            check(torch.equal(encoder._run(*inputs)[-1], replayed), f"w2v-BERT {name!r}: a replay's encoder output differs from the eager one")
+            for label, call in (("eager", lambda: encoder._run(*inputs)), ("replayed", lambda: encoder(*args))):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                call()
+                enqueued = time.perf_counter()
+                torch.cuda.synchronize()
+                timings[label] = ((enqueued - start) * 1e3, (time.perf_counter() - start) * 1e3)
+        print(
+            f"w2v-BERT request {name!r}: encoder input {list(shape[0])}; the capturing predict {capture_ms:.1f} ms,"
+            f" the graph reserved {kept / 2**20:.1f} MiB (all graphs {encoder._graph_bytes / 2**20:.1f} MiB,"
+            f" allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB);"
+            f" K7 {recorded} recorded, {layers} a replayed request, K1 and K2 0; replay bit-equal to eager;"
+            " layer stack host / wall ms: " + ", ".join(f"{label} {host:.1f} / {wall:.1f}" for label, (host, wall) in timings.items()),
+            flush=True,
+        )
+    hook.remove()
+    del estimator
+    torch.cuda.empty_cache()
+
+
+def w2v_bert_serving_shape():
+    """(frame lengths, padded frames) of the first serving request under
+    w2v-BERT 2.0's front end: 10 s buckets to 163840 samples, 511 frames."""
+    from allophant_tpu_torch.models.w2v_bert import Wav2Vec2BertArchitecture
+    from allophant_tpu_torch.training.estimator import _bucket_length
+
+    first_batch = serving_requests()[0][1]["batch"]
+    architecture = Wav2Vec2BertArchitecture()
+    serve_time = int(architecture.downsampled_lengths(_bucket_length(first_batch.audio_features.shape[1])))
+    return [int(architecture.downsampled_lengths(int(length))) for length in first_batch.lengths], serve_time
 
 
 TRAIN_BATCH, TRAIN_TIME, HEADS, HEAD_DIM = 8, 499, 16, 64
@@ -1496,9 +1691,11 @@ class TwinsForbidden:
         import allophant_tpu_torch.ops.decode as decode
         import allophant_tpu_torch.ops.frame_encoder as frame_encoder
         import allophant_tpu_torch.ops.oneshot_attention as attention
+        import allophant_tpu_torch.ops.relkey_attention as relkey
 
         names = ("reference_oneshot", "reference_oneshot_dropout", "reference_oneshot_backward", "reference_dropout_mask_bits")
         self.saved = [(attention, name, getattr(attention, name)) for name in names]
+        self.saved.append((relkey, "reference_relkey_attention", relkey.reference_relkey_attention))
         self.saved.append((frame_encoder, "reference_frame_conv", frame_encoder.reference_frame_conv))
         self.saved += [(decode, name, getattr(decode, name)) for name in ("beam_search_padded", "backtrace_beams_device")]
         for module, name, _ in self.saved:
@@ -4373,6 +4570,7 @@ def phase_export(results: dict, root: Path) -> None:
 
 
 MULTI_GPU_FLAG = "--multi-gpu"
+W2V_BERT_FLAG = "--w2v-bert"
 
 
 def multi_gpu_only() -> int:
@@ -4395,6 +4593,29 @@ def multi_gpu_only() -> int:
         write_train_cli_inputs(root)
         phase_multi_gpu(launches, root)
     print(f"multi-GPU launches: {launches}", flush=True)
+    return 0
+
+
+def w2v_bert_only() -> int:
+    """``chip_smoke.py --w2v-bert``: the kernels' build, K7's registers from
+    ``nvcc -Xptxas -v``, K7's kernel phase and the w2v-BERT serving phase."""
+    from allophant_tpu_torch.device import set_float32_precision
+    from allophant_tpu_torch.kernels.build import NVCC_FLAGS, SOURCE_DIR, cuda_tool
+
+    phase_card()
+    phase_build()
+    set_float32_precision("highest")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as directory:
+        result = subprocess.run(
+            [cuda_tool(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(Path(directory) / "k7.so"), str(SOURCE_DIR / "relkey_attention.cu")],
+            capture_output=True, text=True, timeout=600,
+        )
+    print("\n".join(line for line in result.stderr.splitlines() if "registers" in line or "spill" in line), flush=True)
+    entry = timed("relative-key attention kernel", phase_relkey_attention, *w2v_bert_serving_shape())
+    launches = {"relkey_attention": 0}
+    timed("w2v-BERT serve", phase_w2v_bert_serve, launches)
+    entry["launches"] = launches["relkey_attention"]
+    print(json.dumps({"kernels": [entry]}), flush=True)
     return 0
 
 
@@ -4422,6 +4643,8 @@ def main() -> int:
 
     if sys.argv[1:] == [MULTI_GPU_FLAG]:
         return multi_gpu_only()
+    if sys.argv[1:] == [W2V_BERT_FLAG]:
+        return w2v_bert_only()
     overall = time.perf_counter()
     card = timed("card", phase_card)
     timed("build", phase_build)
@@ -4429,7 +4652,10 @@ def main() -> int:
     timed("frame encoder SASS", phase_frame_encoder_sass)
     set_float32_precision("highest")
     launches = dict.fromkeys(
-        ("oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout", "dropout_mask"),
+        (
+            "oneshot_attention", "frame_encoder", "beam_search", "beam_backtrace", "attention_backward", "attention_dropout",
+            "dropout_mask", "relkey_attention",
+        ),
         0,
     )
 
@@ -4446,6 +4672,7 @@ def main() -> int:
 
     entries = [
         timed("attention kernels", phase_attention, serve_lengths, serve_time),
+        timed("relative-key attention kernel", phase_relkey_attention, *w2v_bert_serving_shape()),
         timed("frame encoder kernel", phase_frame_encoder, len(first_batch), samples),
         *timed("beam kernels", phase_beam_kernels, serve_lengths, serve_time),
     ]
@@ -4458,6 +4685,7 @@ def main() -> int:
     timed("serve beam", phase_serve_beam, estimator, launches)
     del estimator
     torch.cuda.empty_cache()
+    timed("w2v-BERT serve", phase_w2v_bert_serve, launches)
     timed("wide heads", phase_wide_encoder, launches)
     torch.cuda.empty_cache()
     timed("float32", phase_float32)
